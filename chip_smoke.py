@@ -7,20 +7,31 @@ Run from the root of a checkout, with one card:
 In order:
   1. print the card's name and power limit, build the kernel library
      (``loner_tpu_torch/csrc/*.cu`` with nvcc, at first use);
-  2. run each kernel of the main path (B1 cp_fwd, B2 cp_bwd, B3 pdf_sample)
-     at the flagship shapes on inputs taken from the flagship's own sampler,
-     hold it against its plain PyTorch version, and time both with CUDA
-     events (B3 also against torch.searchsorted + gathers, the library call);
+  2. run each kernel (B1 cp_fwd, B2 cp_bwd, B3 pdf_sample, B4 interp_fwd,
+     B5 interp_dpts) at the flagship shapes on inputs taken from the
+     flagship's own sampler, hold it against its plain PyTorch version, and
+     time both with CUDA events (B3 also against torch.searchsorted +
+     gathers, the library call). B4/B5 run at the shapes of both hash-on
+     configurations (the triad's fat-row level, L=1 x F=16, and the 16-level
+     FusedHash, L=16 x F=2), beside the corner-row gather and the strided
+     table-gradient scatter they sit between;
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
-     just before and read just after: each must have launched once per step,
-     and every loss must be finite;
+     just before and read just after: each kernel of the path must have
+     launched once per step (B5 once per step with pose gradients), and
+     every loss must be finite. Three paths: the default hash-off triad
+     (B1-B3), the triad with its hash level (B1-B5; profiled), and the
+     FusedHash field (B3-B5);
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
-     with the same draws, with the MLP in f32 and in bf16, and compare the
-     loss and the gradients;
-  5. profile five more joint steps (torch.profiler): device time by
-     operator and the device's idle share, into chiprun_out/step_profile.txt;
+     with the same draws, and compare the loss and the gradients: hash off
+     with the MLP in f32 and in bf16, and both hash-on fields with an f32 MLP
+     (64 samples per ray: the strided table gradient is active), each also
+     from the same rays and samples on both devices;
+  5. profile five more joint steps of each path (torch.profiler): device
+     time by operator and the device's idle share, into
+     chiprun_out/step_profile.txt (hash off), step_profile_hash.txt and
+     step_profile_fused.txt;
   6. print one JSON line of the kernels and, last, the device line.
 
 Any failed phase raises, and the script exits non-zero without printing a
@@ -97,14 +108,183 @@ def _profile(step, state, window, flags, mask, n_steps: int, wall_ms: float, pat
     print("\n".join(lines[:16]))
 
 
+def _drive(name, opt, cfg, cube, state, window, plan, wrappers, expected):
+    """Run ``plan`` [(kind, flags)] from ``state`` with every wrapper's
+    launch count set to 0 just before and read just after; check finite
+    losses, no skipped step and ``expected`` launches per wrapper name.
+    Returns (step, state, mask, record of step times, peak memory, losses
+    and launches)."""
+    dev = state.poses.device
+    step = opt.make_train_step(cfg, cube, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    mask = torch.ones(cfg.max_keyframes, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    losses, times = [], {}
+    for it, (kind, flags) in enumerate(plan):
+        t = time.perf_counter()
+        state, aux = step(state, window, flags, mask, it)
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+        losses.append(float(aux["loss"]))
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name}: {len(plan)} steps, losses {['%.4f' % x for x in losses]}")
+    print(f"{name}: launches {launches} (expected {expected})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if int(state.skipped_steps) != 0 or int(state.global_step) != len(plan):
+        raise AssertionError(f"{name}: steps skipped: {int(state.skipped_steps)} of {int(state.global_step)}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    # the first step of each kind pays one-time set-up (cuBLAS handles,
+    # allocator growth): it is kept in the JSON file but not in the means
+    step_ms = {k: sum(v[1:]) / len(v[1:]) if len(v) > 1 else v[0] for k, v in times.items()}
+    print(f"{name}: step ms (host clock, after synchronize; first step of each kind excluded): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+          + f"; first step {times[plan[0][0]][0]:.1f} ms; peak memory {peak_gib:.2f} GiB")
+    record = {"step_ms": step_ms, "step_ms_all": times, "peak_mem_gib": peak_gib, "losses": losses,
+              "launches": launches}
+    return step, state, mask, record
+
+
+def _field_step(opt, cfg, scube, state, bundle, z, draws):
+    """The field part of a train step on the tensors' device, from given rays
+    and samples: render, lidar loss, and its gradients against the sigma
+    parameters and the rays' origins and directions."""
+    nerf = cfg.nerf._replace(encoding_slot_period=cfg.n_samples_train)
+    leaves = [t.detach().requires_grad_(True) for t in opt.tree_leaves(state.params["sigma"])]
+    it = iter(leaves)
+    params = {"sigma": opt.tree_map(lambda _: next(it), state.params["sigma"])}
+    bundle = bundle._replace(origins=bundle.origins.detach().requires_grad_(True),
+                             directions=bundle.directions.detach().requires_grad_(True))
+    render = opt.render_rays(params, bundle, z, nerf, draws.enc_key, point_chunks=1)
+    loss, _ = opt.compute_lidar_loss(render, bundle, cfg.world_scale, cfg.loss,
+                                     state.global_step.to(torch.float32), 0)
+    grads = torch.autograd.grad(loss, leaves + [bundle.origins, bundle.directions])
+    return float(loss.detach()), {"sigma": list(grads[:-2]), "rays": list(grads[-2:])}
+
+
+def _scale_hash_table(state, factor: float):
+    """The state with the sigma branch's hash table (triad "hash" leaf or
+    FusedHash table) scaled by ``factor``."""
+    sigma = state.params["sigma"]
+    table = sigma["table"]
+    table = {**table, "hash": table["hash"] * factor} if isinstance(table, dict) else table * factor
+    return state._replace(params={**state.params, "sigma": {**sigma, "table": table}})
+
+
+def _card_vs_cpu(opt, flagship, cfg, dev, flags, tol, what, whole_step_gated=True, hash_scale=None):
+    """One reduced-depth step on the card and on the CPU from one state with
+    the same draws: loss within 1e-5 relative, gradients within ``tol``. Also
+    the field part of the step on both devices from the same rays and
+    samples (made on the CPU), held to the same bounds. With
+    ``whole_step_gated`` False the whole step's numbers are reported only;
+    ``hash_scale`` scales the state's hash table first."""
+    cpu = torch.device("cpu")
+    moved = lambda tree, d=cpu: opt.tree_map(lambda t: t.to(d), tree)  # noqa: E731
+    small = cfg._replace(window_size=2, max_keyframes=4, rays_per_kf=64, sky_rays_per_kf=16, n_samples_train=64)
+    scfg, scube, sstate, swindow = flagship(device=dev, seed=2, cfg=small, n_keyframes=2)
+    if hash_scale is not None:
+        sstate = _scale_hash_table(sstate, hash_scale)
+    sdraws = opt.draw_step(scfg, swindow, torch.Generator(device=dev).manual_seed(3), dev)
+    smask = torch.ones(scfg.max_keyframes, device=dev)
+    _, gpu_aux = opt.make_train_step(scfg, scube, device=dev)(sstate, swindow, flags, smask, 0, sdraws)
+    _, cpu_aux = opt.make_train_step(scfg, scube, device=cpu)(
+        moved(sstate), moved(swindow), flags, smask.cpu(), 0, moved(sdraws))
+    loss_g, loss_c = float(gpu_aux["loss"]), float(cpu_aux["loss"])
+    rel = {k: _rel(gpu_aux["grads"][k], cpu_aux["grads"][k]) for k in ("sigma", "poses")}
+
+    # the rays and samples each device builds for itself, and the field from
+    # the CPU's rays and samples on both
+    rays = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        st, win, dr = moved(sstate, d), moved(swindow, d), moved(sdraws, d)
+        with torch.no_grad():
+            b = opt.build_window_rays(st.poses, win, scube.to(d), scfg, dr.ray_idx, dr.sky_idx)
+            z = opt.sampling.occ_grid_sampler_z_vals(b, st.occ_grid, scfg.n_samples_train, scfg.perturb,
+                                                     dr.u_strat, dr.u_pdf)
+        rays[name] = (b, z)
+    b_cpu, z_cpu = rays["cpu"]
+    b_card, z_card = rays["card"]
+    ray_diff = {"origins": float((b_card.origins.cpu() - b_cpu.origins).abs().max()),
+                "directions": float((b_card.directions.cpu() - b_cpu.directions).abs().max()),
+                "z_vals": float((z_card.cpu() - z_cpu).abs().max())}
+    f_loss_g, f_grads_g = _field_step(opt, scfg, scube, moved(sstate, dev), moved(b_cpu, dev), z_cpu.to(dev),
+                                      moved(sdraws, dev))
+    f_loss_c, f_grads_c = _field_step(opt, scfg, scube, moved(sstate), b_cpu, z_cpu, moved(sdraws))
+    f_rel = {k: _rel(f_grads_g[k], f_grads_c[k]) for k in ("sigma", "rays")}
+    print(f"reduced step ({what}): loss card {loss_g:.6f} cpu {loss_c:.6f}; gradient rel err {rel}; "
+          f"rays and samples built on each device differ by {ray_diff}; from the same rays and samples: "
+          f"loss card {f_loss_g:.6f} cpu {f_loss_c:.6f}, gradient rel err {f_rel}")
+    checks = [("field from the same rays", f_loss_g, f_loss_c, f_rel)]
+    if whole_step_gated:
+        checks.append(("whole step", loss_g, loss_c, rel))
+    for part, lg, lc, r in checks:
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"card and CPU losses differ ({what}, {part}): {lg} vs {lc}")
+        if not max(r.values()) <= tol:
+            raise AssertionError(f"card and CPU gradients differ ({what}, {part}): {r}")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "grad_rel_err": rel, "whole_step_gated": whole_step_gated,
+            "ray_diff": ray_diff, "field_loss_card": f_loss_g, "field_loss_cpu": f_loss_c,
+            "field_grad_rel_err": f_rel, "bound": tol}
+
+
+def _check_fused_kernels(fe, ecfg, pts, gen, what):
+    """B4/B5 at one encoder configuration's flagship shapes against their
+    plain versions, timed beside the gather and the table-gradient scatter."""
+    dev = pts.device
+    n, lf = pts.shape[1], ecfg.output_dim
+    table = fe.init_fused_table(gen, ecfg, dev) * 1e4  # O(1) corner values
+    tables_bf16 = table.to(torch.bfloat16)
+    v_t = fe._gather_v_t(tables_bf16, pts, ecfg)
+    g = torch.randn((lf, n), generator=gen, device=dev)
+    out, ref = fe.interp_fwd(pts, v_t, ecfg), fe.interp_fwd_ref(pts, v_t, ecfg)
+    e_fwd = float((out - ref).abs().max())
+    if not e_fwd <= 1e-5 * max(1.0, float(ref.abs().max())):
+        raise AssertionError(f"interp_fwd ({what}) disagrees with its plain version: max abs err {e_fwd}")
+    del out, ref
+    d, d_ref = fe.interp_dpts(pts, v_t, g, ecfg), fe.dpts_ref(pts, v_t, g, ecfg)
+    e_dp, scale = float((d - d_ref).abs().max()), float(d_ref.abs().max())
+    # dpts sums the levels' terms, each scaled by up to 2^19: held to 1e-4
+    # relative with an absolute floor of 1e-4 of the largest entry
+    if not torch.allclose(d, d_ref, rtol=1e-4, atol=1e-4 * scale):
+        raise AssertionError(f"interp_dpts ({what}) disagrees: max abs err {e_dp} (scale {scale})")
+    del d, d_ref
+    key = torch.tensor([12345, 678], dtype=torch.int64, device=dev)
+    res = {
+        "fwd_err": e_fwd, "dpts_err": e_dp,
+        "fwd_ms": _event_ms(lambda: fe.interp_fwd(pts, v_t, ecfg), 20),
+        "fwd_plain_ms": _event_ms(lambda: fe.interp_fwd_ref(pts, v_t, ecfg), 3, 1),
+        "dpts_ms": _event_ms(lambda: fe.interp_dpts(pts, v_t, g, ecfg), 20),
+        "dpts_plain_ms": _event_ms(lambda: fe.dpts_ref(pts, v_t, g, ecfg), 3, 1),
+        "gather_ms": _event_ms(lambda: fe._gather_v_t(tables_bf16, pts, ecfg), 10),
+        "dtable_strided_ms": _event_ms(lambda: fe._bwd_dtable_strided(pts, g, key, ecfg), 10),
+    }
+    l, f = ecfg.n_levels, ecfg.n_features
+    # B4 per (point, level): frac and 1-frac (15), 8 weights (16), 16 per
+    # feature; bytes: pts + corner rows in, features out
+    res["fwd_bound"] = _bound(n * (12 + 16 * l * f + 4 * l * f), n * l * (31 + 16 * f))
+    # B5 per (point, level): frac (15), pc (16 per feature), 3 x 8 x 4 for the
+    # three axis sums, 6 to scale and add; bytes: pts, rows, g in, dpts out
+    res["dpts_bound"] = _bound(n * (12 + 16 * l * f + 4 * l * f + 12), n * l * (117 + 16 * f))
+    print(f"B4/B5 at the {what} shapes (L={l}, F={f}, N={n}): " + ", ".join(
+        f"{k} {v[0]:.4f} ({v[1]})" if isinstance(v, tuple) else f"{k} {v:.4g}" for k, v in res.items()))
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible; nothing was run")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from loner_tpu_torch.flagship import flagship
     from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.models.nerf import NeRFConfig, fused_config_from
     from loner_tpu_torch.ops import cp_kernel, kernels, pdf_kernel
+    from loner_tpu_torch.ops import fused_encoder as fe
     from loner_tpu_torch.ops.pdf_kernel import build_cdf
+    from loner_tpu_torch.ops.triad_field import TriadConfig
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -121,6 +301,19 @@ def main() -> None:
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernels_build.log").write_text(kernels.build_log)
+
+    # the two hash-on fields: the triad's fat-row level (TriadConfig(hash_levels=1))
+    # and the 16-level FusedHash (NeRFConfig(encoding_impl="fused"))
+    hash_cfgs = {
+        "triad_hash": opt.MapperConfig(nerf=NeRFConfig(triad=TriadConfig(hash_levels=1))),
+        "fused": opt.MapperConfig(nerf=NeRFConfig(encoding_impl="fused")),
+    }
+
+    def encoder_config(mcfg):
+        nerf = mcfg.nerf._replace(encoding_slot_period=mcfg.n_samples_train)
+        if nerf.encoding_impl == "fused":
+            return fused_config_from(nerf, nerf.pos_encoding_sigma)
+        return nerf._triad_for(nerf.pos_encoding_sigma).hash_config(nerf.encoding_slot_period)
 
     # ---- flagship inputs for the kernel checks --------------------------
     cfg, cube, state, window = flagship(device=dev)
@@ -215,79 +408,97 @@ def main() -> None:
     report.append(dict(name="pdf_sample", route="cuda", source="loner_tpu_torch/csrc/pdf_kernel.cu",
                        replaces="loner_tpu/ops/pdf_kernel.py:45", max_abs_err=err, ms=b3_ms, plain_ms=b3_plain,
                        bound_ms=b3_bound[0], bound_by=b3_bound[1], library_ms=b3_lib))
-    del lines, pts, g, bins, cdf, u, out, ref, bundle, z, probs, zs
+    del lines, g, bins, cdf, u, out, ref, bundle, z, probs, zs
+
+    # B4, B5 at both hash-on shapes, on the same sampled points; the JSON
+    # line carries the triad's (the profiled hash-on path's) shapes
+    fused_shapes = {k: _check_fused_kernels(fe, encoder_config(c), pts, gen, k) for k, c in hash_cfgs.items()}
+    main_shapes = fused_shapes["triad_hash"]
+    for name, src, kind in (("interp_fwd", "loner_tpu/ops/fused_encoder.py:210", "fwd"),
+                            ("interp_dpts", "loner_tpu/ops/fused_encoder.py:248", "dpts")):
+        r = main_shapes
+        report.append(dict(name=name, route="cuda", source="loner_tpu_torch/csrc/fused_encoder.cu", replaces=src,
+                           max_abs_err=max(s[f"{kind}_err"] for s in fused_shapes.values()), ms=r[f"{kind}_ms"],
+                           plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound"][0],
+                           bound_by=r[f"{kind}_bound"][1], library_ms=None))
+    del pts
+    torch.cuda.empty_cache()
     for r in report:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
               f"{r['bound_by']}, library {r['library_ms']}), max abs err {r['max_abs_err']:.3e}")
 
-    # ---- the main path: flagship train steps ----------------------------
-    step = opt.make_train_step(cfg, cube, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    mask = torch.ones(cfg.max_keyframes, device=dev)
+    # ---- the main paths: flagship train steps ----------------------------
     joint = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=False, do_occ_update=False)
     frozen = joint._replace(freeze_poses=True)
     occ = joint._replace(do_occ_update=True)
-    wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
-    losses, times = [], {"joint": [], "frozen": [], "occ_update": []}
+    wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
     plan = [("joint", joint)] * 6 + [("frozen", frozen)] * 4 + [("occ_update", occ)] * 2
-    for it, (name, flags) in enumerate(plan):
-        t = time.perf_counter()
-        state, aux = step(state, window, flags, mask, it)
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t) * 1e3)
-        losses.append(float(aux["loss"]))
-    launches = {w.__name__: w.launches for w in wrappers}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"main path: {len(plan)} steps, losses {['%.4f' % x for x in losses]}")
-    print(f"launches in the main path: {launches}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss on the main path: {losses}")
-    if int(state.skipped_steps) != 0 or int(state.global_step) != len(plan):
-        raise AssertionError(f"steps skipped: {int(state.skipped_steps)} of {int(state.global_step)}")
-    for name, count in launches.items():
-        if count != len(plan):
-            raise AssertionError(f"{name} launched {count} times in {len(plan)} steps")
-    for r in report:
-        r["launches"] = launches[r["name"]]
-    # the first step of each kind pays one-time set-up (cuBLAS handles,
-    # allocator growth): it is kept in the JSON file but not in the means
-    step_ms = {k: sum(v[1:]) / len(v[1:]) if len(v) > 1 else v[0] for k, v in times.items()}
-    print(f"step ms (host clock, after synchronize; first step of each kind excluded): "
-          f"joint {step_ms['joint']:.3f}, frozen {step_ms['frozen']:.3f}, occ_update {step_ms['occ_update']:.3f}; "
-          f"first joint step {times['joint'][0]:.1f} ms; peak memory {peak_gib:.2f} GiB")
+    n_steps, n_pose = len(plan), sum(1 for _, f in plan if not f.freeze_poses)
+    paths = {}
 
-    _profile(step, state, window, joint, mask, 5, step_ms["joint"], out_dir / "step_profile.txt")
+    # the default hash-off triad: B1-B3 once per step
+    step, state, mask, paths["hash_off"] = _drive(
+        "hash-off triad", opt, cfg, cube, state, window, plan, wrappers,
+        {"cp_fwd": n_steps, "cp_bwd": n_steps, "pdf_sample": n_steps, "interp_fwd": 0, "interp_dpts": 0})
+    for r in report[:3]:
+        r["launches"] = paths["hash_off"]["launches"][r["name"]]
+    _profile(step, state, window, joint, mask, 5, paths["hash_off"]["step_ms"]["joint"], out_dir / "step_profile.txt")
+    del step, state, window
+    torch.cuda.empty_cache()
+
+    # the triad with its hash level: B1-B4 once per step, B5 once per step
+    # with pose gradients (a pose-frozen step needs no point gradient)
+    hcfg, hcube, hstate, hwindow = flagship(device=dev, cfg=hash_cfgs["triad_hash"])
+    step, hstate, mask, paths["triad_hash"] = _drive(
+        "hash-on triad", opt, hcfg, hcube, hstate, hwindow, plan, wrappers,
+        {"cp_fwd": n_steps, "cp_bwd": n_steps, "pdf_sample": n_steps, "interp_fwd": n_steps, "interp_dpts": n_pose})
+    for r in report[3:]:
+        r["launches"] = paths["triad_hash"]["launches"][r["name"]]
+    _profile(step, hstate, hwindow, joint, mask, 5, paths["triad_hash"]["step_ms"]["joint"],
+             out_dir / "step_profile_hash.txt")
+    del step, hstate, hwindow
+    torch.cuda.empty_cache()
+
+    # the 16-level FusedHash field: no CP term; B3, B4 once per step, B5 per
+    # step with pose gradients
+    fplan = [("joint", joint)] * 4 + [("frozen", frozen)] * 3
+    fcfg, fcube, fstate, fwindow = flagship(device=dev, cfg=hash_cfgs["fused"])
+    step, fstate, mask, paths["fused"] = _drive(
+        "fused", opt, fcfg, fcube, fstate, fwindow, fplan, wrappers,
+        {"cp_fwd": 0, "cp_bwd": 0, "pdf_sample": len(fplan), "interp_fwd": len(fplan),
+         "interp_dpts": sum(1 for _, f in fplan if not f.freeze_poses)})
+    _profile(step, fstate, fwindow, joint, mask, 5, paths["fused"]["step_ms"]["joint"],
+             out_dir / "step_profile_fused.txt")
+    del step, fstate, fwindow
+    torch.cuda.empty_cache()
 
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
     # bf16 MLP an operand on a rounding boundary can also round one bf16 ulp
     # (2^-8) apart, which bounds the normwise gradient difference
-    cpu = torch.device("cpu")
-    moved = lambda tree: opt.tree_map(lambda t: t.to(cpu), tree)  # noqa: E731
     reduced = {}
     for dtype, tol in (("float32", 1e-4), ("bfloat16", 2.0**-8)):
-        small = cfg._replace(nerf=cfg.nerf._replace(compute_dtype=dtype), window_size=2, max_keyframes=4,
-                             rays_per_kf=64, sky_rays_per_kf=16, n_samples_train=64)
-        scfg, scube, sstate, swindow = flagship(device=dev, seed=2, cfg=small, n_keyframes=2)
-        sdraws = opt.draw_step(scfg, swindow, torch.Generator(device=dev).manual_seed(3), dev)
-        smask = torch.ones(scfg.max_keyframes, device=dev)
-        _, gpu_aux = opt.make_train_step(scfg, scube, device=dev)(sstate, swindow, joint, smask, 0, sdraws)
-        _, cpu_aux = opt.make_train_step(scfg, scube, device=cpu)(
-            moved(sstate), moved(swindow), joint, smask.cpu(), 0, moved(sdraws))
-        loss_g, loss_c = float(gpu_aux["loss"]), float(cpu_aux["loss"])
-        rel = {k: _rel(gpu_aux["grads"][k], cpu_aux["grads"][k]) for k in ("sigma", "poses")}
-        reduced[dtype] = {"loss_card": loss_g, "loss_cpu": loss_c, "grad_rel_err": rel, "bound": tol}
-        print(f"reduced step ({dtype} MLP): loss card {loss_g:.6f} cpu {loss_c:.6f}; gradient rel err {rel}")
-        if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
-            raise AssertionError(f"card and CPU losses differ ({dtype}): {loss_g} vs {loss_c}")
-        if not max(rel.values()) <= tol:
-            raise AssertionError(f"card and CPU gradients differ ({dtype}): {rel}")
+        reduced[dtype] = _card_vs_cpu(opt, flagship, cfg._replace(nerf=cfg.nerf._replace(compute_dtype=dtype)),
+                                      dev, joint, tol, f"hash off, {dtype} MLP")
+    # The hash tables are scaled from their init (1e-4) to 0.1: at init the
+    # FusedHash field is near zero everywhere. Where sigma is that small,
+    # alpha = 1 - exp(-delta*sigma) is exactly 0 on one device and one ulp on
+    # the other, and the L1 loss |w - w_gt| has a kink there (slope 0 against
+    # +-1), so the FusedHash comparison uses the L2 selection, smooth at 0.
+    # Its finest level has 2^19 cells across the cube, 32 f32 ulps of a
+    # coordinate each, so the ulps by which the two devices' rays differ move
+    # points across cell borders, where the cell-local feature and its point
+    # gradient jump: its whole step is reported, not held; its field is held
+    # from the same rays and samples.
+    for k, hc in hash_cfgs.items():
+        hc = hc._replace(nerf=hc.nerf._replace(compute_dtype="float32"))
+        if k == "fused":
+            hc = hc._replace(loss=hc.loss._replace(loss_selection="L2_JS"))
+        reduced[k] = _card_vs_cpu(opt, flagship, hc, dev, joint, 1e-4, f"{k}, float32 MLP, {hc.loss.loss_selection}",
+                                  whole_step_gated=k != "fused", hash_scale=1e3)
 
-    summary = {"card": smi, "step_ms": step_ms, "step_ms_all": times, "peak_mem_gib": peak_gib, "losses": losses,
-               "reduced_step": reduced, "kernels": report}
+    summary = {"card": smi, "paths": paths, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

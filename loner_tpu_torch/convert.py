@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from loner_tpu_torch.mapping.optimizer import AdamState, MapperState, resolve_device
+from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.mapping.optimizer import AdamState, MapperState
 
 
 def _tensor(x, device) -> torch.Tensor:

@@ -21,7 +21,8 @@ from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
 from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.geometry.world_cube import compute_world_cube
 from loner_tpu_torch.mapping.keyframe import KeyFrame, stack_window
-from loner_tpu_torch.mapping.optimizer import MapperConfig, init_mapper_state, resolve_device
+from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.mapping.optimizer import MapperConfig, init_mapper_state
 
 
 def flagship(

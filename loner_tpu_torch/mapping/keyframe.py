@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.data.scan import LidarScan
+from loner_tpu_torch.device import resolve_device
 
 
 @dataclass
@@ -48,10 +49,11 @@ class KeyFrameWindow(NamedTuple):
         return self.dirs.shape[0]
 
 
-def stack_window(keyframes: List[KeyFrame], n_sky_pad: int = 64, device="cpu") -> KeyFrameWindow:
+def stack_window(keyframes: List[KeyFrame], n_sky_pad: int = 64, device="cuda") -> KeyFrameWindow:
     """Stack keyframes into a fixed-shape window on ``device``. All scans
     share one padded point budget; stacking is on the host, then one copy per
     field."""
+    device = resolve_device(device)
     dirs = np.stack([np.asarray(kf.scan.ray_directions) for kf in keyframes])
     dists = np.stack([np.asarray(kf.scan.distances) for kf in keyframes])
     valid = np.stack([np.asarray(kf.scan.valid) for kf in keyframes])

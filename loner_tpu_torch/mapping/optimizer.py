@@ -4,7 +4,8 @@ The port of ``loner_tpu/mapping/optimizer.py`` (``make_train_step_body``).
 One call of the step does
 
   build rays from the (differentiable) keyframe poses -> occupancy-guided z
-  sampling (kernel B3) -> TriadField encode (kernels B1/B2) + sigma MLP ->
+  sampling (kernel B3) -> field encode (TriadField: kernels B1/B2, and B4/B5
+  for its hash level; FusedHash: B4/B5) + sigma MLP ->
   composite -> JS/LOS loss -> backward -> Adam for sigma / intensity / poses
   -> optional occupancy-grid update
 
@@ -20,9 +21,9 @@ that group's parameters, moments and count as they were. Everything is
 selected on the device (``torch.where``), so a step makes no host sync.
 
 Random draws (ray and sky indices, the stratified, pdf and occupancy-corner
-uniforms) come in a :class:`StepDraws`; without one the step draws them from
-its ``torch.Generator``. The RANDOM ray strategy is ported; MASK and FIXED
-raise until a later slice.
+uniforms, the hash encoder's two key words) come in a :class:`StepDraws`;
+without one the step draws them from its ``torch.Generator``. The RANDOM ray
+strategy is ported; MASK and FIXED raise until a later slice.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.geometry.rays import RayBundle, build_lidar_rays
 from loner_tpu_torch.models import sampling
@@ -103,14 +105,7 @@ class StepDraws(NamedTuple):
     u_strat: torch.Tensor  # (N, S/2) stratified jitter
     u_pdf: torch.Tensor  # (N, S/2) inverse-CDF uniforms
     u_occ: torch.Tensor  # (N, S) occupancy-corner uniforms
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (no fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available; pass device='cpu' to run on the CPU")
-    return dev
+    enc_key: torch.Tensor  # (2,) int64 in [0, 2^32): the encoder's two key words
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +235,7 @@ def draw_step(cfg: MapperConfig, window, generator: torch.Generator, device) -> 
         u_strat=rand(n, half),
         u_pdf=rand(n, half),
         u_occ=rand(n, cfg.n_samples_train),
+        enc_key=torch.randint(0, 2**32, (2,), generator=generator, device=device),
     )
 
 
@@ -295,13 +291,17 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     scale = cfg.world_scale
+    # the strided table gradient's slot period is the samples per ray
+    # (points arrive flattened (rays, S))
+    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=cfg.n_samples_train))
 
     def forward(params, poses, occ_grid, window, draws, iteration, global_step):
         bundle = build_window_rays(poses, window, cube, cfg, draws.ray_idx, draws.sky_idx)
         z_vals = sampling.occ_grid_sampler_z_vals(
             bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat, draws.u_pdf
         )
-        render = render_rays(params, bundle, z_vals, cfg.nerf)
+        # one pass over the points: the JAX step's train_point_chunks
+        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=1)
         loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
         return loss, aux, render, bundle
 

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from loner_tpu_torch.device import resolve_device
+
 
 class MLPConfig(NamedTuple):
     in_dim: int
@@ -30,8 +32,9 @@ class MLPConfig(NamedTuple):
 _ACTS = {"relu": torch.relu}  # the activations the ported configs use
 
 
-def init_mlp(generator: torch.Generator, cfg: MLPConfig, device="cpu") -> dict:
+def init_mlp(generator: torch.Generator, cfg: MLPConfig, device="cuda") -> dict:
     """He-normal init; {"w": [W0, W1, ...], "b": [b0, b1, ...]}, W (in, out)."""
+    device = resolve_device(device)
     dims = [cfg.in_dim] + [cfg.hidden_dim] * cfg.n_hidden_layers + [cfg.out_dim]
     ws, bs = [], []
     for i in range(len(dims) - 1):

@@ -1,30 +1,47 @@
-"""Decoupled sigma/intensity neural field, TriadField branch.
+"""Decoupled sigma/intensity neural field: the TriadField and FusedHash
+branches.
 
-The port of ``loner_tpu/models/nerf.py`` for ``encoding_impl="triad"``:
+The port of ``loner_tpu/models/nerf.py`` for ``encoding_impl`` "triad" and
+"fused":
 
-  * sigma branch:      triad-encode(pos) -> MLP (64 x 1 hidden) -> 1 logit
-  * intensity branch:  triad-encode(pos) [+ SH(viewdir)] -> MLP (64 x 4) -> colors
+  * sigma branch:      encode(pos) -> MLP (64 x 1 hidden) -> 1 logit
+  * intensity branch:  encode(pos) [+ SH(viewdir)] -> MLP (64 x 4) -> colors
 
-Both branches are initialised and carried in the parameters (the mapper's
+"triad" is the TriadField (CP lines + Fourier features, and a fat-row hash
+level when ``triad.hash_levels > 0``); "fused" is the FusedHash per-level
+hash encoding sized by the branch's :class:`HashEncodingConfig`. Both
+branches are initialised and carried in the parameters (the mapper's
 optimizer updates both), but this slice evaluates only the sigma branch: the
 intensity forward and the SH encoding come with the camera slice.
 Positions arrive in world-cube coordinates [-1, 1]^3 and map to [0, 1]^3.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.models.mlp import MLPConfig, init_mlp, mlp_apply_t
+from loner_tpu_torch.ops.fused_encoder import FusedHashConfig, fused_hash_encode_t, init_fused_table
 from loner_tpu_torch.ops.triad_field import TriadConfig, init_triad, triad_encode_t
+
+_PORTED_IMPLS = ("triad", "fused")
 
 
 class HashEncodingConfig(NamedTuple):
-    """The one field of the JAX package's ``HashEncodingConfig`` that the
-    triad branch reads: it sizes the branch's hash table."""
+    """The JAX package's multi-resolution hash-grid config. Only the config
+    is ported: the "fused" encoder and the triad's table size read it."""
 
+    n_levels: int = 16
+    n_features_per_level: int = 2
     log2_hashmap_size: int = 18
+    base_resolution: int = 16
+    per_level_scale: float = 2.0
+
+    @property
+    def output_dim(self) -> int:
+        return self.n_levels * self.n_features_per_level
 
 
 class NeRFConfig(NamedTuple):
@@ -38,17 +55,26 @@ class NeRFConfig(NamedTuple):
     intensity_hidden_dim: int = 64
     intensity_hidden_layers: int = 4
     compute_dtype: str = "bfloat16"
-    encoding_impl: str = "triad"
+    encoding_impl: str = "triad"  # "triad" | "fused" ("cell", "packed", "exact": not ported)
     triad: TriadConfig = TriadConfig()
+    encoding_bwd: str = "strided"  # fused table gradient: "strided" | "exact"
+    encoding_bwd_stride: int = 2  # fused, strided: keep every k-th slot group
+    encoding_slot_period: int = 512  # fused, strided: samples per ray (S)
+    point_chunks: int = 4  # sequential point chunks of render_rays (1 = one pass)
 
     def _triad_for(self, enc: HashEncodingConfig) -> TriadConfig:
         """Per-branch triad config: the hash table is sized from the branch's
         encoding config (log2 18 for sigma, 19 for intensity)."""
         return self.triad._replace(hash_log2_cells=max(enc.log2_hashmap_size - 2, 8))
 
+    def _encoding_dim(self, enc: HashEncodingConfig) -> int:
+        if self.encoding_impl == "triad":
+            return self._triad_for(enc).output_dim
+        return enc.output_dim
+
     def sigma_mlp_config(self) -> MLPConfig:
         return MLPConfig(
-            in_dim=self._triad_for(self.pos_encoding_sigma).output_dim,
+            in_dim=self._encoding_dim(self.pos_encoding_sigma),
             out_dim=1,
             hidden_dim=self.sigma_hidden_dim,
             n_hidden_layers=self.sigma_hidden_layers,
@@ -56,7 +82,7 @@ class NeRFConfig(NamedTuple):
         )
 
     def intensity_mlp_config(self) -> MLPConfig:
-        in_dim = self._triad_for(self.pos_encoding_intensity).output_dim
+        in_dim = self._encoding_dim(self.pos_encoding_intensity)
         if self.enable_view_dependence:
             in_dim += self.sh_degree**2
         return MLPConfig(
@@ -68,24 +94,45 @@ class NeRFConfig(NamedTuple):
         )
 
 
+def fused_config_from(cfg: NeRFConfig, enc: HashEncodingConfig) -> FusedHashConfig:
+    """Capacity-comparable FusedHash config: 2^log2 vertices x 2 features ->
+    2^(log2-2) cells x 16 features (one row per cell)."""
+    return FusedHashConfig(
+        n_levels=enc.n_levels,
+        log2_cells=max(enc.log2_hashmap_size - 2, 8),
+        base_resolution=enc.base_resolution,
+        per_level_scale=enc.per_level_scale,
+        bwd="strided" if cfg.encoding_bwd == "strided" else "exact",
+        bwd_stride=cfg.encoding_bwd_stride,
+        slot_period=cfg.encoding_slot_period,
+    )
+
+
 def _check_impl(cfg: NeRFConfig) -> None:
-    if cfg.encoding_impl != "triad":
+    if cfg.encoding_impl not in _PORTED_IMPLS:
         raise NotImplementedError(
-            f"encoding_impl={cfg.encoding_impl!r}: only the triad field is ported "
+            f"encoding_impl={cfg.encoding_impl!r}: only {_PORTED_IMPLS} are ported "
             "(ROADMAP.md, queue A item 12)"
         )
 
 
-def init_nerf(generator: torch.Generator, cfg: NeRFConfig, device="cpu") -> dict:
+def _init_table(generator: torch.Generator, cfg: NeRFConfig, enc: HashEncodingConfig, device):
+    if cfg.encoding_impl == "triad":
+        return init_triad(generator, cfg._triad_for(enc), device)
+    return init_fused_table(generator, fused_config_from(cfg, enc), device)
+
+
+def init_nerf(generator: torch.Generator, cfg: NeRFConfig, device="cuda") -> dict:
     _check_impl(cfg)
+    dev = resolve_device(device)
     return {
         "sigma": {
-            "table": init_triad(generator, cfg._triad_for(cfg.pos_encoding_sigma), device),
-            "mlp": init_mlp(generator, cfg.sigma_mlp_config(), device),
+            "table": _init_table(generator, cfg, cfg.pos_encoding_sigma, dev),
+            "mlp": init_mlp(generator, cfg.sigma_mlp_config(), dev),
         },
         "intensity": {
-            "table": init_triad(generator, cfg._triad_for(cfg.pos_encoding_intensity), device),
-            "mlp": init_mlp(generator, cfg.intensity_mlp_config(), device),
+            "table": _init_table(generator, cfg, cfg.pos_encoding_intensity, dev),
+            "mlp": init_mlp(generator, cfg.intensity_mlp_config(), dev),
         },
     }
 
@@ -95,10 +142,20 @@ def _sanitize_sigma(sigma: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(sigma, nan=0.0, posinf=3.4e38, neginf=-3.4e38)
 
 
-def query_sigma_t(params: dict, pts_cube_t: torch.Tensor, cfg: NeRFConfig) -> torch.Tensor:
+def _encode_t(cfg: NeRFConfig, table, pos_t: torch.Tensor, enc: HashEncodingConfig,
+              key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``key`` (two words) draws the strided table gradient's rotation; the
+    training step passes fresh words each step."""
+    if cfg.encoding_impl == "triad":
+        return triad_encode_t(table, pos_t, cfg._triad_for(enc), key, cfg.encoding_slot_period)
+    return fused_hash_encode_t(table, pos_t, fused_config_from(cfg, enc), key)
+
+
+def query_sigma_t(params: dict, pts_cube_t: torch.Tensor, cfg: NeRFConfig,
+                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """pts_cube_t (3, N) in [-1, 1] -> sigma logits (N,)."""
     _check_impl(cfg)
     pos = (pts_cube_t + 1.0) / 2.0
-    h = triad_encode_t(params["sigma"]["table"], pos, cfg._triad_for(cfg.pos_encoding_sigma))
+    h = _encode_t(cfg, params["sigma"]["table"], pos, cfg.pos_encoding_sigma, key)
     sigma = mlp_apply_t(params["sigma"]["mlp"], h, cfg.sigma_mlp_config())  # (1, N)
     return _sanitize_sigma(sigma[0])

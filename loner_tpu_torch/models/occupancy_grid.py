@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from loner_tpu_torch.device import resolve_device
+
 
 class OccGridConfig(NamedTuple):
     voxel_size: int = 100  # V, grid is V^3
@@ -24,9 +26,9 @@ class OccGridConfig(NamedTuple):
     estimator: str = "stochastic"  # "stochastic" (one corner) | "exact" (8 corners)
 
 
-def init_occ_grid(cfg: OccGridConfig, device="cpu") -> torch.Tensor:
+def init_occ_grid(cfg: OccGridConfig, device="cuda") -> torch.Tensor:
     v = cfg.voxel_size
-    return torch.zeros((v, v, v), dtype=torch.float32, device=device)
+    return torch.zeros((v, v, v), dtype=torch.float32, device=resolve_device(device))
 
 
 def _pack_occ_cells(grid: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 The port of ``loner_tpu/models/rendering.py`` for the train step: the default
 compositing strategy (relu sigma, a 1e10 terminal delta, expected depth with
 the unterminated mass at the far plane, opacity, variance) and a sigma-only
-``render_rays`` in one point chunk. The intensity branch, the "adjusted"
-strategy and point chunking come with later slices.
+``render_rays``. The intensity branch and the "adjusted" strategy come with
+later slices.
 """
 from __future__ import annotations
 
@@ -56,12 +56,22 @@ def composite_t(
     return rgb, depth, weights, opacity, variance
 
 
-def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig) -> RenderResult:
+def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
+                key: Optional[torch.Tensor] = None, point_chunks: Optional[int] = None) -> RenderResult:
     """Evaluate the sigma field at o + d*z and composite (the JAX package's
-    ``render_rays(..., sigma_only=True)`` in one point chunk)."""
+    ``render_rays(..., sigma_only=True)``). The points go to the field in
+    ``point_chunks`` (``cfg.point_chunks`` when None) sequential chunks when
+    that divides them, else in one; ``key`` draws the encoder's strided table
+    gradient."""
     n, s = z_vals.shape
+    if point_chunks is None:
+        point_chunks = cfg.point_chunks
     pts_t = bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z_vals[None]  # (3, N, S)
-    sigma = query_sigma_t(params, pts_t.reshape(3, n * s), cfg)
+    flat = pts_t.reshape(3, n * s)
+    if point_chunks > 1 and (n * s) % point_chunks == 0:
+        sigma = torch.cat([query_sigma_t(params, c, cfg, key) for c in flat.chunk(point_chunks, dim=1)])
+    else:
+        sigma = query_sigma_t(params, flat, cfg, key)
     raw_t = sigma.reshape(1, n, s)
     rgb, depth, weights, opacity, variance = composite_t(raw_t, z_vals, bundle.directions, far=bundle.far)
     return RenderResult(rgb, depth, weights, opacity, variance, z_vals, pts_t, raw_t)

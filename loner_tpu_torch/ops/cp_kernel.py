@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.ops import kernels
 
 CP_PAD_R = 128  # padded line length
@@ -45,9 +46,10 @@ def init_cp_lines(
     generator: torch.Generator,
     resolutions: Sequence[int],
     n_features: int,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """(3L, F, 128) f32 lines; active rows 1 + 0.1*N(0,1), padded rows zero."""
+    device = resolve_device(device)
     out = torch.zeros((3 * len(resolutions), n_features, CP_PAD_R), dtype=torch.float32, device=device)
     for i in range(3 * len(resolutions)):
         res = int(resolutions[i // 3])

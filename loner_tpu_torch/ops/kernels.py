@@ -43,6 +43,10 @@ _SIGNATURES = {
     "loner_cp_bwd": (_P, _P, _P, _P, _P, _LL, _I, _I, _P, _I, _P),
     # bins, cdf, u, out, n_rays, m, k, eps, stream
     "loner_pdf_sample": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # pts, v_t, out, n, n_levels, n_features, scales, stream
+    "loner_fused_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
+    # pts, v_t, g, dpts, n, n_levels, n_features, scales, stream
+    "loner_fused_dpts": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

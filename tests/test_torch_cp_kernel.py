@@ -134,13 +134,13 @@ def test_encode_autograd_matches_jax_grad():
 
 def test_init_cp_lines_layout():
     res, f = (4, 8, 128), 3
-    lines = tcp.init_cp_lines(torch.Generator().manual_seed(0), res, f)
+    lines = tcp.init_cp_lines(torch.Generator().manual_seed(0), res, f, device="cpu")
     assert lines.shape == (9, f, 128) and lines.dtype == torch.float32
     for i, r in enumerate(np.repeat(res, 3)):
         assert float(lines[i, :, r:].abs().sum()) == 0.0
         assert abs(float(lines[i, :, :r].mean()) - 1.0) < 0.2
     with pytest.raises(ValueError):
-        tcp.init_cp_lines(torch.Generator().manual_seed(0), (129,), f)
+        tcp.init_cp_lines(torch.Generator().manual_seed(0), (129,), f, device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_path_uncounted():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of loner_tpu_torch imports JAX or
-the JAX package, its entry points default to the card and raise without
-one (no CPU fallback), and the parts not yet ported say so."""
+the JAX package, its entry points and public constructors default to the
+card and raise without one (no CPU fallback), and the encoders not yet
+ported say so."""
 import ast
 import os
 import subprocess
@@ -12,8 +13,13 @@ import torch
 
 import loner_tpu_torch
 from loner_tpu_torch.flagship import flagship
+from loner_tpu_torch.mapping import keyframe as tkf
 from loner_tpu_torch.mapping import optimizer as topt
+from loner_tpu_torch.models import mlp as tmlp
 from loner_tpu_torch.models import nerf as tnerf
+from loner_tpu_torch.models import occupancy_grid as tocc
+from loner_tpu_torch.ops import cp_kernel as tcp
+from loner_tpu_torch.ops import fused_encoder as tfe
 from loner_tpu_torch.ops import triad_field as ttriad
 
 PKG = Path(loner_tpu_torch.__file__).resolve().parent
@@ -65,11 +71,27 @@ def test_entry_points_default_to_the_card():
         topt.make_train_step(cfg, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship()
+    # the public constructors too
+    gen = torch.Generator()
+    small = tnerf.NeRFConfig(triad=ttriad.TriadConfig(cp_resolutions=(4,), cp_features=2, hash_levels=1, hash_features=2))
+    constructors = [
+        lambda: tnerf.init_nerf(gen, small),
+        lambda: ttriad.init_triad(gen, small.triad),
+        lambda: tmlp.init_mlp(gen, tmlp.MLPConfig(in_dim=3, out_dim=1)),
+        lambda: tocc.init_occ_grid(tocc.OccGridConfig(voxel_size=4)),
+        lambda: tcp.init_cp_lines(gen, (4,), 2),
+        lambda: tfe.init_fused_table(gen, tfe.FusedHashConfig(n_levels=1, log2_cells=8)),
+        lambda: tkf.stack_window([]),
+    ]
+    for make in constructors:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
-def test_unported_paths_raise():
-    cfg = tnerf.NeRFConfig(triad=ttriad.TriadConfig(hash_levels=1))
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        tnerf.init_nerf(torch.Generator(), cfg)
+@pytest.mark.parametrize("impl", ["cell", "packed", "exact"])
+def test_unported_paths_raise(impl):
+    cfg = tnerf.NeRFConfig(encoding_impl=impl)
     with pytest.raises(NotImplementedError, match="triad"):
-        tnerf.init_nerf(torch.Generator(), tnerf.NeRFConfig(encoding_impl="fused"))
+        tnerf.init_nerf(torch.Generator(), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=impl):
+        tnerf.query_sigma_t({}, torch.zeros((3, 4)), cfg)

@@ -1,8 +1,9 @@
 """Models of the PyTorch port (loner_tpu_torch/models, ops/triad_field.py)
 against the JAX package, module by module, on the same numpy inputs: the
 occupancy grid and its two transposes, the samplers with the same draws, the
-TriadField encode, the MLP in f32 and bf16, the sigma query, compositing and
-the lidar loss."""
+TriadField encode (with and without its hash level), the MLP in f32 and
+bf16, the sigma query (triad, triad with the hash level, FusedHash),
+compositing and the lidar loss."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +27,7 @@ from loner_tpu_torch.models import rendering as trender
 from loner_tpu_torch.models import sampling as tsampling
 from loner_tpu_torch.ops import triad_field as ttriad
 
+import torch_parity as tp
 from torch_parity import NERF, TRIAD
 
 T = torch.as_tensor
@@ -149,8 +151,37 @@ def test_triad_encode_matches_jax_values_and_grads():
     )
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(gl), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(pt.grad.numpy(), np.asarray(gp), rtol=2e-3, atol=5e-4)
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        ttriad.triad_encode_t({"cp": lt}, pt, cfg_t._replace(hash_levels=1))
+
+
+@pytest.mark.parametrize("key", [None, (7, 5)])
+def test_triad_encode_with_hash_level_matches_jax(key):
+    """The fat-row hash level appended to the CP and Fourier features, with
+    its strided table gradient drawn from ``key`` (or the points' bits)."""
+    kw = dict(TRIAD, hash_levels=1, hash_features=4, hash_log2_cells=10)
+    cfg_t, cfg_j = ttriad.TriadConfig(**kw), jtriad.TriadConfig(**kw)
+    assert tuple(cfg_t) == tuple(cfg_j) and cfg_t.output_dim == cfg_j.output_dim == 24
+    assert tuple(cfg_t.hash_config(16)) == tuple(cfg_j.hash_config(16))
+    params = jax.tree.map(np.asarray, jtriad.init_triad(jax.random.PRNGKey(0), cfg_j))
+    params["hash"] = params["hash"] * 1e3
+    assert sorted(params) == sorted(ttriad.init_triad(torch.Generator(), cfg_t, device="cpu")) == ["cp", "hash"]
+    n, s = 192, 16
+    pts = _points((n,), lo=0.0, hi=1.0)
+    g = np.random.default_rng(7).normal(size=(cfg_j.output_dim, n)).astype(np.float32)
+    tparams = {k: T(v).clone().requires_grad_(True) for k, v in params.items()}
+    pt = T(pts).requires_grad_(True)
+    out = ttriad.triad_encode_t(tparams, pt, cfg_t, None if key is None else torch.tensor(key), s)
+    torch.sum(out * T(g)).backward()
+    jkey = None if key is None else jnp.asarray(key, jnp.uint32)
+
+    def j_obj(p, x):
+        return jnp.sum(jtriad.triad_encode_t(p, x, cfg_j, jkey, s) * g)
+
+    gj, gpj = jax.grad(j_obj, argnums=(0, 1))(jax.tree.map(jnp.asarray, params), jnp.asarray(pts))
+    ref = jtriad.triad_encode_t(jax.tree.map(jnp.asarray, params), jnp.asarray(pts), cfg_j, jkey, s)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tparams["cp"].grad.numpy(), np.asarray(gj["cp"]), rtol=1e-4, atol=1e-4)
+    assert tp.rel_err(tparams["hash"].grad, gj["hash"]) <= 1e-5
+    np.testing.assert_allclose(pt.grad.numpy(), np.asarray(gpj), rtol=2e-3, atol=5e-4 * float(np.abs(gpj).max()))
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 2e-2)])
@@ -184,6 +215,39 @@ def test_mlp_matches_jax_values_and_grads(dtype, rtol):
         np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("hash_term", ["triad_hash", "fused"])
+def test_query_sigma_with_hash_term_matches_jax(hash_term):
+    """The sigma query with the hash term on, values and gradients against
+    the parameters and the points, with the encoder key given."""
+    jcfg = jnerf.NeRFConfig(**tp.nerf_kwargs(hash_term, tp.JHashEncodingConfig, jtriad.TriadConfig))
+    tcfg = tnerf.NeRFConfig(**tp.nerf_kwargs(hash_term, tnerf.HashEncodingConfig, ttriad.TriadConfig))
+    jcfg, tcfg = (c._replace(encoding_slot_period=16) for c in (jcfg, tcfg))
+    assert tcfg.sigma_mlp_config() == tuple(jcfg.sigma_mlp_config())
+    assert tcfg.intensity_mlp_config() == tuple(jcfg.intensity_mlp_config())
+    if hash_term == "fused":
+        assert tuple(tnerf.fused_config_from(tcfg, tcfg.pos_encoding_sigma)) == tuple(
+            jnerf.fused_config_from(jcfg, jcfg.pos_encoding_sigma))
+    params = jax.tree.map(np.asarray, jnerf.init_nerf(jax.random.PRNGKey(2), jcfg))
+    fresh = tnerf.init_nerf(torch.Generator(), tcfg, device="cpu")
+    assert [a.shape for a in tp.leaves(fresh)] == [a.shape for a in tp.leaves(params)]
+    pts = _points((12 * 16,), lo=-1.0, hi=1.0)
+    key = (11, 3)
+    tparams = jax.tree.map(lambda a: T(a).clone().requires_grad_(True), params)
+    pt = T(pts).requires_grad_(True)
+    out = tnerf.query_sigma_t(tparams, pt, tcfg, torch.tensor(key))
+    c = np.random.default_rng(9).normal(size=out.shape).astype(np.float32)
+    torch.sum(out * T(c)).backward()
+
+    def j_obj(p, x):
+        return jnp.sum(jnerf.query_sigma_t(p, x, jcfg, jnp.asarray(key, jnp.uint32)) * c)
+
+    gj, gpj = jax.grad(j_obj, argnums=(0, 1))(jax.tree.map(jnp.asarray, params), jnp.asarray(pts))
+    ref = jnerf.query_sigma_t(jax.tree.map(jnp.asarray, params), jnp.asarray(pts), jcfg, jnp.asarray(key, jnp.uint32))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert tp.rel_err(jax.tree.map(lambda a: a.grad, tparams["sigma"]), gj["sigma"]) <= 1e-5
+    assert tp.rel_err(pt.grad, gpj) <= 1e-4
+
+
 def test_query_sigma_matches_jax():
     jcfg = jnerf.NeRFConfig(triad=jtriad.TriadConfig(**TRIAD), compute_dtype="float32", **NERF)
     tcfg = tnerf.NeRFConfig(triad=ttriad.TriadConfig(**TRIAD), compute_dtype="float32", **NERF)
@@ -197,6 +261,33 @@ def test_query_sigma_matches_jax():
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
     s = tnerf._sanitize_sigma(T(np.array([np.nan, np.inf, -np.inf, 1.0], np.float32))).numpy()
     np.testing.assert_array_equal(s, np.asarray(jnerf._sanitize_sigma(jnp.asarray([np.nan, np.inf, -np.inf, 1.0]))))
+
+
+@pytest.mark.parametrize("hash_term", ["off", "triad_hash"])
+def test_render_rays_in_point_chunks_matches_jax(hash_term):
+    """``render_rays`` in the config's 4 point chunks (the JAX package's
+    default for renders outside the train step), without a key: each chunk
+    draws its strided rotation from its own points, on both sides."""
+    jcfg = jnerf.NeRFConfig(**tp.nerf_kwargs(hash_term, tp.JHashEncodingConfig, jtriad.TriadConfig))
+    tcfg = tnerf.NeRFConfig(**tp.nerf_kwargs(hash_term, tnerf.HashEncodingConfig, ttriad.TriadConfig))
+    jcfg, tcfg = (c._replace(encoding_slot_period=16) for c in (jcfg, tcfg))
+    assert tcfg.point_chunks == jcfg.point_chunks == 4
+    params = jax.tree.map(np.asarray, jnerf.init_nerf(jax.random.PRNGKey(4), jcfg))
+    b, z, _ = _render_inputs(n=24, s=16, seed=12)
+    tparams = jax.tree.map(lambda a: T(a).clone().requires_grad_(True), params)
+    tb = _torch_bundle(b, requires_grad=("origins",))
+    out = trender.render_rays(tparams, tb, T(z), tcfg)
+    torch.sum(out.depth).backward()
+
+    def j_depth(p, origins):
+        return jrender.render_rays(p, _jax_bundle(dict(b, origins=origins)), jnp.asarray(z), jcfg, sigma_only=True).depth
+
+    ref = j_depth(jax.tree.map(jnp.asarray, params), jnp.asarray(b["origins"]))
+    gp, go = jax.grad(lambda p, o: jnp.sum(j_depth(p, o)), argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(b["origins"]))
+    np.testing.assert_allclose(out.depth.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert tp.rel_err(jax.tree.map(lambda a: a.grad, tparams["sigma"]), gp["sigma"]) <= 1e-5
+    assert tp.rel_err(tb.origins.grad, go) <= 1e-4
 
 
 def _render_inputs(n=24, s=16, seed=10):

@@ -19,6 +19,7 @@ from loner_tpu.geometry import se3 as jse3
 from loner_tpu.geometry.world_cube import compute_world_cube as j_compute_world_cube
 from loner_tpu.mapping import keyframe as jkf
 from loner_tpu.mapping import optimizer as jopt
+from loner_tpu.models.hash_encoding import HashEncodingConfig as JHashEncodingConfig
 from loner_tpu.models.losses import LossConfig as JLossConfig
 from loner_tpu.models.nerf import NeRFConfig as JNeRFConfig
 from loner_tpu.models.occupancy_grid import OccGridConfig as JOccGridConfig
@@ -26,6 +27,7 @@ from loner_tpu.ops.triad_field import TriadConfig as JTriadConfig
 
 from loner_tpu_torch.mapping import optimizer as topt
 from loner_tpu_torch.models.losses import LossConfig as TLossConfig
+from loner_tpu_torch.models.nerf import HashEncodingConfig as THashEncodingConfig
 from loner_tpu_torch.models.nerf import NeRFConfig as TNeRFConfig
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig as TOccGridConfig
 from loner_tpu_torch.ops.triad_field import TriadConfig as TTriadConfig
@@ -36,12 +38,32 @@ NERF = dict(num_colors=1, sigma_hidden_dim=16, intensity_hidden_dim=16, intensit
 MAPPER = dict(window_size=2, max_keyframes=4, rays_per_kf=32, sky_rays_per_kf=8, n_samples_train=32)
 SCAN = dict(n_keyframes=2, n_channels=8, n_azimuth=64, pad_to=256, n_sky=32)
 OCC_V = 16
+# the field's hash term: off (the default gather-free triad), the triad's
+# fat-row hash level (L=1, F=4, 2^10 cells), or the 4-level FusedHash (F=2,
+# 2^10 cells, base resolution 4: levels 0-1 dense, 2-3 hashed)
+HASH = {
+    "off": dict(triad={}, enc={}, nerf={}),
+    "triad_hash": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=12), nerf={}),
+    "fused": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
+                  nerf=dict(encoding_impl="fused")),
+}
 
 
-def mapper_configs(world_scale: float, compute_dtype: str = "float32"):
+def nerf_kwargs(hash_term: str, enc_cls, triad_cls, compute_dtype: str = "float32") -> dict:
+    """NeRFConfig keyword arguments of the small field with ``hash_term``,
+    built from one package's config classes."""
+    h = HASH[hash_term]
+    kw = dict(NERF, triad=triad_cls(**TRIAD, **h["triad"]), compute_dtype=compute_dtype, **h["nerf"])
+    if h["enc"]:
+        enc = enc_cls(**h["enc"])
+        kw.update(pos_encoding_sigma=enc, pos_encoding_intensity=enc._replace(log2_hashmap_size=enc.log2_hashmap_size + 1))
+    return kw
+
+
+def mapper_configs(world_scale: float, compute_dtype: str = "float32", hash_term: str = "off"):
     """(jax MapperConfig, torch MapperConfig) of the same small mapper."""
     j = jopt.MapperConfig(
-        nerf=JNeRFConfig(triad=JTriadConfig(**TRIAD), compute_dtype=compute_dtype, **NERF),
+        nerf=JNeRFConfig(**nerf_kwargs(hash_term, JHashEncodingConfig, JTriadConfig, compute_dtype)),
         loss=JLossConfig(),
         occ=JOccGridConfig(voxel_size=OCC_V),
         ray_range=RAY_RANGE,
@@ -49,7 +71,7 @@ def mapper_configs(world_scale: float, compute_dtype: str = "float32"):
         **MAPPER,
     )
     t = topt.MapperConfig(
-        nerf=TNeRFConfig(triad=TTriadConfig(**TRIAD), compute_dtype=compute_dtype, **NERF),
+        nerf=TNeRFConfig(**nerf_kwargs(hash_term, THashEncodingConfig, TTriadConfig, compute_dtype)),
         loss=TLossConfig(),
         occ=TOccGridConfig(voxel_size=OCC_V),
         ray_range=RAY_RANGE,
@@ -59,13 +81,13 @@ def mapper_configs(world_scale: float, compute_dtype: str = "float32"):
     return j, t
 
 
-def jax_flagship_tiny(compute_dtype: str = "float32", seed: int = 0):
+def jax_flagship_tiny(compute_dtype: str = "float32", seed: int = 0, hash_term: str = "off"):
     """The JAX side of ``loner_tpu_torch.flagship.flagship`` at the small
     sizes above: ``__graft_entry__._flagship`` with its sizes cut."""
     scene = jsyn.Scene.default()
     poses, ts = jsyn.circular_trajectory(n_poses=SCAN["n_keyframes"], radius=6.0, z=1.5)
     cube = j_compute_world_cube(poses, ray_range=RAY_RANGE, rebase_to_first_pose=False)
-    cfg, _ = mapper_configs(float(cube.scale_factor), compute_dtype)
+    cfg, _ = mapper_configs(float(cube.scale_factor), compute_dtype, hash_term)
     kfs = []
     for i, (T, t0) in enumerate(zip(poses, ts)):
         dirs, dists, stamps, hit = jsyn.simulate_scan(
@@ -87,13 +109,14 @@ def jax_step_draws(key, cfg, window) -> dict:
     ``:177,180,190,200`` (per-keyframe ray and sky indices),
     ``sampling.py:151,34`` and ``pdf_kernel.py:90`` / ``sampling.py:82``
     (stratified and pdf uniforms), ``optimizer.py:386`` with
-    ``occupancy_grid.py:223`` (occupancy-corner uniforms)."""
+    ``occupancy_grid.py:223`` (occupancy-corner uniforms), and the encoder's
+    key ``k_enc`` as its two words (``fused_encoder.py:454-459``)."""
     w = window.dirs.shape[0]
     p = window.dirs.shape[1]
     s = window.sky_dirs.shape[1]
     n = cfg.rays_per_window
     half = cfg.n_samples_train // 2
-    k_rays, k_samp, _ = jax.random.split(key, 3)
+    k_rays, k_samp, k_enc = jax.random.split(key, 3)
     ray_idx, sky_idx = [], []
     for k in jax.random.split(k_rays, w):
         k1, k2 = jax.random.split(k)
@@ -108,6 +131,7 @@ def jax_step_draws(key, cfg, window) -> dict:
         u_occ=np.asarray(
             jax.random.uniform(jax.random.fold_in(key, 0x0CC), (n, cfg.n_samples_train), dtype=jnp.float32)
         ),
+        enc_key=np.asarray(k_enc, np.uint32).astype(np.int64),  # the key's two words
     )
 
 
