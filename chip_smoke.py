@@ -11,10 +11,14 @@ In order:
      B5 interp_dpts) at the flagship shapes on inputs taken from the
      flagship's own sampler, hold it against its plain PyTorch version, and
      time both with CUDA events (B3 also against torch.searchsorted +
-     gathers, the library call). B4/B5 run at the shapes of both hash-on
-     configurations (the triad's fat-row level, L=1 x F=16, and the 16-level
-     FusedHash, L=16 x F=2), beside the corner-row gather and the strided
-     table-gradient scatter they sit between;
+     gathers, the library call, and both by CUDA-graph replay). B4/B5 run
+     at the shapes of both hash-on configurations (the triad's fat-row
+     level, L=1 x F=16, and the 16-level FusedHash, L=16 x F=2), beside the
+     corner-row gather and the strided table-gradient scatter they sit
+     between. The memory probes' kernels
+     (row_scatter_add, row_gather, col_gather, lane_gather, sublane_gather,
+     two_stage_gather, cp_fwd_gather) run at their probe scripts' default
+     shapes against their plain versions and library calls;
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
      just before and read just after: each kernel of the path must have
@@ -22,6 +26,11 @@ In order:
      every loss must be finite. Three paths: the default hash-off triad
      (B1-B3), the triad with its hash level (B1-B5; profiled), and the
      FusedHash field (B3-B5);
+  3b. run the six memory probes (``loner_tpu_torch/probes/``) at their
+      default sizes, each with every launch count set to 0 just before and
+      read just after: each must launch its kernels as often as its own
+      constants say, and every leg's numbers must be finite and its kernel
+      results equal to their plain counterparts;
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -53,15 +62,32 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def _event_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
+    from loner_tpu_torch.probes.timing import time_ms
+
+    return time_ms(fn, torch.device("cuda", 0), iters, warmup)
+
+
+def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device ms per call with no host time in the way: ``calls`` calls
+    captured in one CUDA graph (after a warm-up call), replayed ``replays``
+    times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _bound(nbytes: float, flops: float):
@@ -274,6 +300,203 @@ def _check_fused_kernels(fe, ecfg, pts, gen, what):
     return res
 
 
+def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms):
+    return dict(name=name, route="cuda", source=f"loner_tpu_torch/csrc/{source}", replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms)
+
+
+def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
+    """The probes' kernels at their scripts' default shapes against their
+    plain versions and library calls (gathers equal; the scatter within 1e-6
+    (f32) or 1e-2 (bf16) of the largest entry, and equal on updates whose
+    partial sums are all exact; the CP forward within 1e-6 of
+    its plain version and 1e-5 of B1), each timed with CUDA events over 200
+    calls after a warm-up (the plain versions over 20). Bounds: bytes, each
+    input read once and each output written once (the work is a load and a
+    store, or an add, per element)."""
+    from loner_tpu_torch.probes import bench_dyngather, bench_gather2, bench_pallas_scatter
+
+    dev = pts.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    entries, details = [], {}
+
+    def timed(fn, plain, library, name):
+        """(ms, plain ms, library ms) of back-to-back calls, host included;
+        the kernel's and the library call's device times (CUDA graph
+        replay) go into ``details``."""
+        details[f"{name}_graph_ms"] = {"kernel": _graph_ms(fn), "library": _graph_ms(library)}
+        return _event_ms(fn, 200, 5), _event_ms(plain, 20, 2), _event_ms(library, 200, 5)
+
+    # P1 row_scatter_add: N rows of 16 f32 into T rows
+    n, t, w = bench_pallas_scatter.N, bench_pallas_scatter.T, bench_pallas_scatter.W
+    idx = torch.randint(0, t, (n,), generator=gen, device=dev, dtype=torch.int32)
+    upd = torch.randn((n, w), generator=gen, device=dev)
+    idx64 = idx.long()
+    library = lambda: torch.zeros((t, w), device=dev).index_add_(0, idx64, upd)  # noqa: E731
+    exact = library()
+    scale = float(exact.abs().max())
+    # Small-integer updates, 4 rows an entry, whose partial sums are all
+    # exact in bf16: every order of the atomics gives the exact sum, so each
+    # variant must equal index_add_ and its plain version bit for bit
+    int_idx = (torch.randperm(n, generator=gen, device=dev) % t).to(torch.int32)
+    int_upd = torch.randint(-4, 5, (n, w), generator=gen, device=dev).float()
+    int_exact = torch.zeros((t, w), device=dev).index_add_(0, int_idx.long(), int_upd)
+    errs = {}
+    for nshadow, acc, label in bench_pallas_scatter.VARIANTS:
+        out = gs.row_scatter_add(int_idx, int_upd, t, nshadow, acc)
+        plain = gs.row_scatter_add_ref(int_idx, int_upd, t, nshadow, acc)
+        if not (torch.equal(out, int_exact) and torch.equal(out, plain)):
+            raise AssertionError(f"{label}: not exact on updates whose every partial sum is exact")
+        out = gs.row_scatter_add(idx, upd, t, nshadow, acc)
+        plain = gs.row_scatter_add_ref(idx, upd, t, nshadow, acc)
+        bound = 1e-6 if acc == torch.float32 else 1e-2
+        e_plain, e_lib = float((out - plain).abs().max()), float((out - exact).abs().max())
+        # atomics add in a varying order: held against the largest entry
+        if not max(e_plain, e_lib) <= bound * scale:
+            raise AssertionError(f"{label}: err vs plain {e_plain}, vs index_add_ {e_lib}, scale {scale}")
+        call = lambda: gs.row_scatter_add(idx, upd, t, nshadow, acc)  # noqa: E731
+        errs[label] = {"vs_plain": e_plain, "vs_index_add": e_lib, "ms": _event_ms(call, 200, 5),
+                       "graph_ms": _graph_ms(call)}
+    details["row_scatter_add"] = {"scale": scale, "variants": errs}
+    print("row_scatter_add variants: " + "; ".join(
+        f"{k}: {v['ms']:.4f} ms, device {v['graph_ms']:.4f} ms, err vs plain {v['vs_plain']:.3e}, "
+        f"vs index_add_ {v['vs_index_add']:.3e}" for k, v in errs.items()) + f" (largest entry {scale:.4f})")
+    ms, plain_ms, lib_ms = timed(lambda: gs.row_scatter_add(idx, upd, t), lambda: gs.row_scatter_add_ref(idx, upd, t),
+                                 library, "row_scatter_add")
+    entries.append(_entry("row_scatter_add", "gather_scatter.cu", "scripts/bench_pallas_scatter.py:45",
+                          errs[bench_pallas_scatter.VARIANTS[0][2]]["vs_plain"], ms, plain_ms,
+                          _bound(4 * n + 4 * n * w + 4 * t * w, n * w), lib_ms))
+    del idx, upd, idx64, exact, int_idx, int_upd, int_exact
+
+    def gather_entry(name, fn, plain, library, nbytes, replaces):
+        out, ref = fn(), plain()
+        if not (torch.equal(out, ref) and torch.equal(out, library())):
+            raise AssertionError(f"{name} disagrees with its plain version or its library call")
+        err = float((out - ref).abs().max())
+        del out, ref
+        ms, plain_ms, lib_ms = timed(fn, plain, library, name)
+        entries.append(_entry(name, "gather_scatter.cu", replaces, err, ms, plain_ms, _bound(nbytes, 0), lib_ms))
+
+    # P2: one hash level's corner rows, (T, 8) f32 table, 2.36M points
+    n, t, w = bench_gather2.N, bench_gather2.T, 8
+    table = torch.randn((t, w), generator=gen, device=dev)
+    table_t = table.T.contiguous()
+    idx = torch.randint(0, t, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx64 = idx.long()
+    nbytes = 4 * (t * w + n + n * w)
+    gather_entry("row_gather", lambda: gs.row_gather(table, idx), lambda: gs.row_gather_ref(table, idx),
+                 lambda: torch.index_select(table, 0, idx64), nbytes, "scripts/bench_gather.py:106")
+    gather_entry("col_gather", lambda: gs.col_gather(table_t, idx), lambda: gs.col_gather_ref(table_t, idx),
+                 lambda: torch.index_select(table_t, 1, idx64), nbytes, "scripts/bench_gather.py:127")
+    del table, table_t, idx, idx64
+
+    # P3/P6: one flagship level as an (N/128, 128) lane gather
+    rows = n // 128
+    tab = torch.randn((rows, 128), generator=gen, device=dev)
+    idx = torch.randint(0, 128, (rows, 128), generator=gen, device=dev, dtype=torch.int32)
+    idx64 = idx.long()
+    gather_entry("lane_gather", lambda: gs.lane_gather(tab, idx), lambda: gs.lane_gather_ref(tab, idx),
+                 lambda: torch.gather(tab, 1, idx64), 3 * 4 * rows * 128, "scripts/bench_honest.py:84")
+
+    # P4: the slab lookups; the JSON line carries the largest slab
+    for r in bench_dyngather.ROWS:
+        tab = torch.randn((r, 128), generator=gen, device=dev)
+        idx = torch.randint(0, r, (r, 128), generator=gen, device=dev, dtype=torch.int32)
+        lane_idx = idx % 128
+        for fn, ref in ((gs.sublane_gather, gs.sublane_gather_ref), (gs.lane_gather, gs.lane_gather_ref)):
+            ix = idx if fn is gs.sublane_gather else lane_idx
+            if not torch.equal(fn(tab, ix), ref(tab, ix)):
+                raise AssertionError(f"{fn.__name__} disagrees with its plain version at rows={r}")
+    idx64 = idx.long()
+    gather_entry("sublane_gather", lambda: gs.sublane_gather(tab, idx), lambda: gs.sublane_gather_ref(tab, idx),
+                 lambda: torch.gather(tab, 0, idx64), 3 * 4 * r * 128, "scripts/bench_dyngather.py:56")
+    r, chunks = bench_dyngather.R, bench_dyngather.CHUNKS
+    tab = torch.randn((r, 128), generator=gen, device=dev)
+    idxs = torch.randint(0, r, (chunks, r, 128), generator=gen, device=dev, dtype=torch.int32)
+    # int64 indices for both stages of the library call, made once, outside the timed calls
+    idxs64, lane64 = idxs.long(), idxs.long() % 128
+
+    def two_gathers():
+        return torch.gather(torch.gather(tab.expand(chunks, -1, -1), 1, idxs64), 2, lane64)
+
+    gather_entry("two_stage_gather", lambda: gs.two_stage_gather(tab, idxs),
+                 lambda: gs.two_stage_gather_ref(tab, idxs), two_gathers, 4 * (r * 128 + 2 * idxs.numel()),
+                 "scripts/bench_dyngather.py:93")
+    del tab, idx, idx64, lane_idx, idxs, idxs64, lane64
+
+    # P5: the CP forward by direct lookups, on B1's flagship inputs
+    out = cp_kernel.cp_fwd_gather(lines, pts, res, nf)
+    err = float((out - cp_kernel.cp_fwd_gather_ref(lines, pts, res)).abs().max())
+    err_b1 = float((out - cp_kernel.cp_fwd(lines, pts, res, nf)).abs().max())
+    if not (err <= 1e-6 and err_b1 <= 1e-5):
+        raise AssertionError(f"cp_fwd_gather disagrees: {err} vs its plain version, {err_b1} vs B1")
+    del out
+    ms = _event_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf), 200, 5)
+    plain_ms = _event_ms(lambda: cp_kernel.cp_fwd_gather_ref(lines, pts, res), 3, 1)
+    entries.append(_entry("cp_fwd_gather", "cp_gather.cu", "scripts/bench_lane_gather.py:48", err, ms, plain_ms,
+                          b1_bound, None))
+    details["cp_fwd_gather_vs_b1"] = err_b1
+    for e in entries:
+        graph = details.get(f"{e['name']}_graph_ms", {})
+        print(f"{e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} by "
+              f"{e['bound_by']}, library {e['library_ms']}), max abs err {e['max_abs_err']:.3e}; "
+              f"device ms by graph replay {graph}", flush=True)
+    return entries, details
+
+
+def _probe_launches(wrappers):
+    """{probe module: {wrapper name: launches}}: the launches each probe must
+    make with its own constants at its default sizes (one checked call plus
+    the timed calls of each kernel leg; a chained leg runs K iterations
+    twice)."""
+    from loner_tpu_torch.probes import (bench_dyngather, bench_gather, bench_gather2, bench_honest,
+                                        bench_lane_gather, bench_pallas_scatter)
+
+    expected = {
+        bench_pallas_scatter: {"row_scatter_add": len(bench_pallas_scatter.VARIANTS) * (1 + bench_pallas_scatter.ITERS)},
+        bench_gather: {"row_gather": 2 * (1 + bench_gather.ITERS), "col_gather": 1 + bench_gather.ITERS},
+        bench_gather2: {"lane_gather": 2 * bench_gather2.K},
+        bench_dyngather: {"sublane_gather": len(bench_dyngather.ROWS) * (1 + bench_dyngather.ITERS),
+                          "lane_gather": len(bench_dyngather.ROWS) * (1 + bench_dyngather.ITERS),
+                          "two_stage_gather": 1 + bench_dyngather.ITERS},
+        bench_lane_gather: {"cp_fwd": 2 * bench_lane_gather.K + 1, "cp_fwd_gather": 2 * bench_lane_gather.K + 1},
+        # lane; fwd, fieldbwd and step (B1); fieldbwd and step (B2); sampler and step (B3)
+        bench_honest: {"lane_gather": 2 * bench_honest.K, "cp_fwd": 3 * 2 * bench_honest.K,
+                       "cp_bwd": 2 * 2 * bench_honest.K, "pdf_sample": 2 * 2 * bench_honest.K},
+    }
+    return {m: {w.__name__: expected[m].get(w.__name__, 0) for w in wrappers} for m in expected}
+
+
+def _run_probes(wrappers):
+    """Run every probe's ``main`` on the card at its default sizes, with every
+    wrapper's launch count set to 0 just before and read just after; check
+    the launches against the probe's constants and each leg's numbers."""
+    runs = {}
+    for module, expected in _probe_launches(wrappers).items():
+        name = module.__name__.rsplit(".", 1)[1]
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = module.main([])
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
+        print(f"probe {name}: {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
+        if launches != expected:
+            raise AssertionError(f"probe {name}: launches {launches}, expected {expected}")
+        for leg, values in result["legs"].items():
+            for key, v in values.items():
+                bad = ((not isinstance(v, bool) and not math.isfinite(v))
+                       or (key == "equal" and not v)
+                       or (key in ("max_abs_err", "abs_err") and not v <= (1e-5 if "cp_fwd" in leg else 0.0))
+                       or (key == "rel_err" and not v <= (1e-6 if "f32" in leg else 1e-2)))
+                if bad:
+                    raise AssertionError(f"probe {name}, leg {leg!r}: {key} = {v}")
+        runs[name] = {"legs": result["legs"], "launches": launches}
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible; nothing was run")
@@ -283,6 +506,7 @@ def main() -> None:
     from loner_tpu_torch.models.nerf import NeRFConfig, fused_config_from
     from loner_tpu_torch.ops import cp_kernel, kernels, pdf_kernel
     from loner_tpu_torch.ops import fused_encoder as fe
+    from loner_tpu_torch.ops import gather_scatter as gs
     from loner_tpu_torch.ops.pdf_kernel import build_cdf
     from loner_tpu_torch.ops.triad_field import TriadConfig
 
@@ -402,13 +626,20 @@ def main() -> None:
     b3_ms = _event_ms(lambda: pdf_kernel.pdf_sample(bins, cdf, u), 50)
     b3_plain = _event_ms(lambda: pdf_kernel.pdf_sample_ref(bins, cdf, u), 5, 1)
     b3_lib = _event_ms(library, 50)
+    b3_graph = {"kernel": _graph_ms(lambda: pdf_kernel.pdf_sample(bins, cdf, u)), "library": _graph_ms(library)}
+    print(f"pdf_sample: device ms by graph replay {b3_graph}")
     nr, m1 = cdf.shape
     # bytes: bins, cdf, u in, samples out; ops: ~log2(M+1) compares + 6 per draw
     b3_bound = _bound(4 * nr * (2 * m1 + 2 * u.shape[1]), nr * u.shape[1] * (math.log2(m1) + 6))
     report.append(dict(name="pdf_sample", route="cuda", source="loner_tpu_torch/csrc/pdf_kernel.cu",
                        replaces="loner_tpu/ops/pdf_kernel.py:45", max_abs_err=err, ms=b3_ms, plain_ms=b3_plain,
                        bound_ms=b3_bound[0], bound_by=b3_bound[1], library_ms=b3_lib))
-    del lines, g, bins, cdf, u, out, ref, bundle, z, probs, zs
+    del g, bins, cdf, u, out, ref, bundle, z, probs, zs
+
+    # P1-P6: the probes' kernels at their scripts' default shapes (P5 on B1's
+    # flagship inputs); their JSON entries follow B1-B5's
+    probe_entries, probe_kernels = _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound)
+    del lines
 
     # B4, B5 at both hash-on shapes, on the same sampled points; the JSON
     # line carries the triad's (the profiled hash-on path's) shapes
@@ -472,6 +703,14 @@ def main() -> None:
     del step, fstate, fwindow
     torch.cuda.empty_cache()
 
+    # ---- the probes: each probe script's port at its default sizes -------
+    probe_wrappers = wrappers + (cp_kernel.cp_fwd_gather, gs.row_scatter_add, gs.row_gather, gs.col_gather,
+                                 gs.lane_gather, gs.sublane_gather, gs.two_stage_gather)
+    probes = _run_probes(probe_wrappers)
+    for r in probe_entries:
+        r["launches"] = sum(p["launches"][r["name"]] for p in probes.values())
+    report += probe_entries
+
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
     # bf16 MLP an operand on a rounding boundary can also round one bf16 ulp
@@ -498,6 +737,7 @@ def main() -> None:
                                   whole_step_gated=k != "fused", hash_scale=1e3)
 
     summary = {"card": smi, "paths": paths, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "pdf_sample_graph_ms": b3_graph, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": report}))

@@ -17,6 +17,10 @@ features ``(L*F, N)`` f32.
   backward is written by hand after ``_bwd_kernel``, not taken from autograd:
   ``dpts`` is zero outside the open interval 0 < x < 1.
 * :func:`cp_encode_t` is the differentiable encode (``torch.autograd.Function``).
+* :func:`cp_fwd_gather` computes the forward by another design (CUDA source in
+  ``csrc/cp_gather.cu``, replacing the lane-gather probe's
+  ``scripts/bench_lane_gather.py::_gather_fwd_kernel``); its plain version
+  :func:`cp_fwd_gather_ref` is :func:`cp_encode_ref`.
 
 ``mm`` ("f32" | "bf16") is the JAX package's knob for the backward's one
 product: with "bf16", ``g * feat_b * feat_c`` and the two hat weights are
@@ -168,6 +172,41 @@ def cp_fwd(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Sequence[int
 
 
 cp_fwd.launches = 0
+
+# The gather-based forward of the lane-gather probe computes cp_encode_ref's
+# function in its order: the same clip, floor, lerp and product.
+cp_fwd_gather_ref = cp_encode_ref
+
+_SMEM_BYTES = 232_448  # the most dynamic shared memory a block may use on an H100
+
+
+def cp_fwd_gather(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Sequence[int], n_features: int) -> torch.Tensor:
+    """(L*F, N) features by direct lookups in the padded lines held whole in
+    shared memory (CUDA source ``csrc/cp_gather.cu``, replacing
+    ``scripts/bench_lane_gather.py::_gather_fwd_kernel``) on CUDA; the plain
+    forward on CPU. Same function as :func:`cp_fwd`."""
+    if pts_t.device.type == "cpu":
+        return cp_fwd_gather_ref(lines_t, pts_t, resolutions)
+    res = _check_args(lines_t, pts_t, resolutions, n_features)
+    if lines_t.numel() * 4 > _SMEM_BYTES:
+        raise ValueError(f"lines_t: {lines_t.numel() * 4} bytes do not fit in a block's shared memory")
+    if lines_t.data_ptr() % 16:
+        raise ValueError("lines_t: expected 16-byte aligned storage")
+    n = pts_t.shape[1]
+    out = torch.empty((len(resolutions) * n_features, n), dtype=torch.float32, device=pts_t.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(pts_t.device):
+        rc = kernels.load().loner_cp_gather_fwd(
+            pts_t.data_ptr(), lines_t.data_ptr(), out.data_ptr(), n, len(resolutions), n_features,
+            ctypes.cast(res, ctypes.c_void_p), kernels.stream_ptr(pts_t),
+        )
+    kernels.check(rc, "cp_fwd_gather")
+    cp_fwd_gather.launches += 1
+    return out
+
+
+cp_fwd_gather.launches = 0
 
 
 def cp_bwd(

@@ -47,6 +47,22 @@ _SIGNATURES = {
     "loner_fused_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
     # pts, v_t, g, dpts, n, n_levels, n_features, scales, stream
     "loner_fused_dpts": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
+    # pts, lines, out, n, n_levels, n_features, res, stream
+    "loner_cp_gather_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
+    # idx, upd, acc, n, t, w, nshadow, acc_bf16, stream
+    "loner_row_scatter_add": (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
+    # acc, out, t * w, nshadow, acc_bf16, stream
+    "loner_shadow_sum": (_P, _P, _LL, _I, _I, _P),
+    # table, idx, out, n, t, w, vec4, stream
+    "loner_row_gather": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
+    # table_t, idx, out, n, t, w, stream
+    "loner_col_gather": (_P, _P, _P, _LL, _LL, _LL, _P),
+    # tab, idx, out, rows, cols, stream
+    "loner_lane_gather": (_P, _P, _P, _LL, _LL, _P),
+    # tab, idx, out, rows, cols, stream
+    "loner_sublane_gather": (_P, _P, _P, _LL, _LL, _P),
+    # tab, idx, out, chunks, rows, cols, stream
+    "loner_two_stage_gather": (_P, _P, _P, _LL, _LL, _LL, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -134,9 +150,12 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and ``shape``)."""
-    if t.device.type != "cuda":
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (and ``shape``)
+    on ``device``, or on a CUDA device when ``device`` is None."""
+    if device is not None and t.device != torch.device(device):
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if device is None and t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")

@@ -189,3 +189,63 @@ def test_cp_wrappers_reject_bad_inputs_on_card():
         tcp.cp_fwd(lines.cpu(), pts, res, f)
     with pytest.raises(ValueError):
         tcp.cp_bwd(lines, pts, g[:, :-1].contiguous(), res, f)
+
+
+def test_fwd_gather_ref_matches_pallas_lane_gather_probe():
+    """``cp_fwd_gather_ref`` against the lane-gather probe's Pallas kernel
+    (``scripts/bench_lane_gather.py::_gather_fwd_kernel``, with that script's
+    grid and block specs) in TPU interpret mode: within 1e-6, and within
+    1e-5 of the JAX ``cp_encode_ref``; points at 0, at 1 and outside the cube."""
+    from functools import partial
+
+    from jax.experimental import pallas as pl
+
+    import torch_parity as tp
+
+    mod = tp.load_script("bench_lane_gather")
+    res, f = SIZES["flagship"][:2]  # the probe's F = 16, its lines (12, 16, 128)
+    n, c = 4096, 2048
+    lines, pts, _ = _inputs(res, f, n)
+    nl = len(res)
+    with pltpu.force_tpu_interpret_mode():
+        call = pl.pallas_call(
+            partial(mod._gather_fwd_kernel, resolutions=res, n_features=f),
+            grid=(n // c,),
+            in_specs=[
+                pl.BlockSpec((3, c), lambda j: (0, j), memory_space=pltpu.VMEM),
+                pl.BlockSpec((3 * nl, f, mod.R), lambda j: (0, 0, 0), memory_space=pltpu.VMEM),
+            ],
+            out_specs=pl.BlockSpec((nl * f, c), lambda j: (0, j), memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((nl * f, n), jnp.float32),
+        )
+        pallas = np.asarray(call(jnp.asarray(pts), jnp.asarray(lines)))
+    out = tcp.cp_fwd_gather_ref(torch.as_tensor(lines), torch.as_tensor(pts), res).numpy()
+    np.testing.assert_allclose(out, pallas, rtol=1e-6, atol=1e-6)
+    ref = np.asarray(jcp.cp_encode_ref(jnp.asarray(lines), jnp.asarray(pts), res))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_fwd_gather_cpu_tensors_take_the_plain_path_uncounted():
+    res, f, n = SIZES["small"]
+    lines, pts, _ = (torch.as_tensor(a) for a in _inputs(res, f, n))
+    before = tcp.cp_fwd_gather.launches
+    assert torch.equal(tcp.cp_fwd_gather(lines, pts, res, f), tcp.cp_fwd_gather_ref(lines, pts, res))
+    assert tcp.cp_fwd_gather.launches == before
+
+
+@pytest.mark.gpu
+def test_cp_fwd_gather_matches_plain_and_b1_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    res, f, n = SIZES["flagship"]
+    for seed, n_pts in ((0, n), (1, 100_003)):
+        lines, pts, _ = (torch.as_tensor(a).cuda() for a in _inputs(res, f, n_pts, seed))
+        before = tcp.cp_fwd_gather.launches
+        out = tcp.cp_fwd_gather(lines, pts, res, f)
+        # same op order, no FMA: bit-identical to the plain version and B1
+        assert torch.equal(out, tcp.cp_fwd_gather_ref(lines, pts, res))
+        assert torch.equal(out, tcp.cp_fwd(lines, pts, res, f))
+        torch.cuda.synchronize()
+        assert tcp.cp_fwd_gather.launches == before + 1
+    with pytest.raises(ValueError):
+        tcp.cp_fwd_gather(lines, pts.double(), res, f)

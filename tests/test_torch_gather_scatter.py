@@ -1,0 +1,275 @@
+"""Row scatter-add and table lookups of the PyTorch port
+(loner_tpu_torch/ops/gather_scatter.py) against the Pallas probe kernels of
+``scripts/``: ``row_scatter_add`` against ``bench_pallas_scatter._mk`` run in
+TPU interpret mode, and each gather, bit for bit, against the jnp expression
+of the Pallas body it replaces. Also: the wrappers refuse what the kernels do
+not take, a CPU tensor takes the plain version uncounted, and (on a card)
+each kernel agrees with its plain version."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import torch_parity as tp
+from loner_tpu_torch.ops import gather_scatter as gs
+
+# ---------------------------------------------------------------------------
+# P1: row scatter-add against the Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+SCATTER = dict(N=1024, T=128, C=256)  # rows, table rows, rows per grid step
+VARIANTS = [(1, "float32"), (2, "float32"), (4, "bfloat16"), (8, "bfloat16")]
+
+
+@pytest.fixture(scope="module")
+def p1():
+    """bench_pallas_scatter with its module sizes set small (``_mk`` reads
+    them when it traces), and its inputs."""
+    mod = tp.load_script("bench_pallas_scatter")
+    for k, v in SCATTER.items():
+        setattr(mod, k, v)
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, SCATTER["T"], SCATTER["N"]).astype(np.int32)
+    idx[:2] = (0, SCATTER["T"] - 1)
+    upd = rng.standard_normal((SCATTER["N"], 16)).astype(np.float32)
+    exact = np.zeros((SCATTER["T"], 16), np.float64)
+    np.add.at(exact, idx, upd)
+    return mod, idx, upd, exact
+
+
+@pytest.mark.parametrize("nshadow,acc", VARIANTS)
+def test_row_scatter_add_matches_pallas_p1(p1, nshadow, acc):
+    """f32 accumulators within 1e-6 of the largest entry (same sums, same
+    order). bf16 accumulators within 1e-2 of the largest entry of the f32
+    sum, the bound the Pallas kernel itself meets: the two round the running
+    bf16 sums at places that need not agree (interpret mode may keep them
+    wider between steps)."""
+    mod, idx, upd, exact = p1
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(mod._mk(nshadow, getattr(jnp, acc))(jnp.asarray(upd), jnp.asarray(idx)))
+    out = gs.row_scatter_add(torch.as_tensor(idx), torch.as_tensor(upd), SCATTER["T"], nshadow,
+                             getattr(torch, acc)).numpy()
+    scale = np.abs(exact).max()
+    if acc == "float32":
+        assert np.abs(out - pallas).max() <= 1e-6 * np.abs(pallas).max()
+        assert np.abs(out - exact).max() <= 1e-6 * scale
+    else:
+        assert np.abs(pallas - exact).max() <= 1e-2 * scale
+        assert np.abs(out - pallas).max() <= 1e-2 * scale
+        assert np.abs(out - exact).max() <= 1e-2 * scale
+        assert not np.array_equal(out, exact.astype(np.float32))  # the sums did round to bf16
+
+
+# ---------------------------------------------------------------------------
+# P2-P6: each gather bit-equal to the jnp body of its Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+def _indices(rng, shape, hi):
+    ix = rng.integers(0, hi, shape).astype(np.int32)
+    ix.reshape(-1)[:2] = (0, hi - 1)  # the first and the last index
+    return ix
+
+
+def _rows_case(kind, t, w, n, rng):
+    table = rng.standard_normal((t, w)).astype(np.float32)
+    ix = _indices(rng, (n,), t)
+    if kind == "row_gather_tala":  # bench_gather.k_tala
+        want = jnp.take_along_axis(jnp.asarray(table), jnp.broadcast_to(jnp.asarray(ix)[:, None], (n, w)), axis=0)
+        return want, gs.row_gather(torch.as_tensor(table), torch.as_tensor(ix))
+    if kind == "row_gather_take":  # bench_gather.k_take
+        want = jnp.take(jnp.asarray(table), jnp.asarray(ix), axis=0)
+        return want, gs.row_gather(torch.as_tensor(table), torch.as_tensor(ix))
+    table_t = np.ascontiguousarray(table.T)  # bench_gather.k_tala_t
+    want = jnp.take_along_axis(jnp.asarray(table_t), jnp.broadcast_to(jnp.asarray(ix)[None, :], (w, n)), axis=1)
+    return want, gs.col_gather(torch.as_tensor(table_t), torch.as_tensor(ix))
+
+
+def _slab_case(kind, rows, chunks, rng):
+    tab = rng.standard_normal((rows, 128)).astype(np.float32)
+    if kind == "lane_gather":  # k_lane of bench_honest, bench_dyngather, bench_gather2
+        ix = _indices(rng, (rows, 128), 128)
+        want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(ix), axis=1)
+        return want, gs.lane_gather(torch.as_tensor(tab), torch.as_tensor(ix))
+    if kind == "sublane_gather":  # bench_dyngather.k_sub
+        ix = _indices(rng, (rows, 128), rows)
+        want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(ix), axis=0)
+        return want, gs.sublane_gather(torch.as_tensor(tab), torch.as_tensor(ix))
+    ix = _indices(rng, (chunks, rows, 128), rows)  # bench_dyngather.k2, chunk by chunk
+    outs = []
+    for c in range(chunks):
+        idx = jnp.asarray(ix[c])
+        g = jnp.take_along_axis(jnp.asarray(tab), idx, axis=0)
+        outs.append(jnp.take_along_axis(g, idx % 128, axis=1))
+    return jnp.stack(outs), gs.two_stage_gather(torch.as_tensor(tab), torch.as_tensor(ix))
+
+
+ROW_SHAPES = [(256, 8, 1000), (8, 16, 37)]  # (T, W, N)
+SLAB_SHAPES = [(8, 3), (64, 2)]  # (rows, chunks of the two-stage lookup)
+
+
+@pytest.mark.parametrize("t,w,n", ROW_SHAPES)
+@pytest.mark.parametrize("kind", ["row_gather_tala", "row_gather_take", "col_gather"])
+def test_row_and_col_gathers_equal_pallas_bodies(kind, t, w, n):
+    want, got = _rows_case(kind, t, w, n, np.random.default_rng(t + n))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rows,chunks", SLAB_SHAPES)
+@pytest.mark.parametrize("kind", ["lane_gather", "sublane_gather", "two_stage_gather"])
+def test_slab_gathers_equal_pallas_bodies(kind, rows, chunks):
+    want, got = _slab_case(kind, rows, chunks, np.random.default_rng(rows))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# argument checks and dispatch
+# ---------------------------------------------------------------------------
+
+
+WRAPPERS = ["col_gather", "lane_gather", "row_gather", "row_scatter_add", "sublane_gather", "two_stage_gather"]
+
+
+def _args():
+    """Good arguments of each wrapper (CPU tensors)."""
+    rng = np.random.default_rng(0)
+    tab = torch.as_tensor(rng.standard_normal((8, 128)).astype(np.float32))
+    ix = torch.as_tensor(_indices(rng, (8, 128), 8))
+    table = torch.as_tensor(rng.standard_normal((16, 8)).astype(np.float32))
+    rows_ix = torch.as_tensor(_indices(rng, (20,), 16))
+    return {
+        "row_scatter_add": (rows_ix, torch.as_tensor(rng.standard_normal((20, 16)).astype(np.float32)), 16),
+        "row_gather": (table, rows_ix),
+        "col_gather": (table.T.contiguous(), rows_ix),
+        "lane_gather": (tab, ix % 8),
+        "sublane_gather": (tab, ix),
+        "two_stage_gather": (tab, ix[None].repeat(2, 1, 1)),
+    }
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrappers_refuse_bad_arguments(name):
+    fn, args = getattr(gs, name), _args()[name]
+    fn(*args)  # the good arguments pass
+    f_pos, i_pos = (1, 0) if name == "row_scatter_add" else (0, 1)
+
+    def with_arg(pos, value):
+        return tuple(value if k == pos else a for k, a in enumerate(args))
+
+    bad = [
+        with_arg(i_pos, args[i_pos].long()),  # int64 indices
+        with_arg(f_pos, args[f_pos].double()),  # f64 values
+        with_arg(i_pos, args[i_pos][None]),  # indices of a shape that does not fit
+        with_arg(f_pos, args[f_pos].T.contiguous().T),  # not contiguous
+        with_arg(f_pos, args[f_pos][None]),  # a 3-d table
+    ]
+    for a in bad:
+        with pytest.raises(ValueError):
+            fn(*a)
+
+
+def test_row_scatter_add_refuses_bad_options():
+    idx, upd, t = _args()["row_scatter_add"]
+    for kw in (dict(nshadow=0), dict(acc_dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            gs.row_scatter_add(idx, upd, t, **kw)
+    with pytest.raises(ValueError):
+        gs.row_scatter_add(idx, upd, 0)
+
+
+def test_cpu_tensors_take_the_plain_path_uncounted():
+    args = _args()
+    refs = {"row_scatter_add": gs.row_scatter_add_ref, "row_gather": gs.row_gather_ref,
+            "col_gather": gs.col_gather_ref, "lane_gather": gs.lane_gather_ref,
+            "sublane_gather": gs.sublane_gather_ref, "two_stage_gather": gs.two_stage_gather_ref}
+    for name, a in args.items():
+        fn = getattr(gs, name)
+        before = fn.launches
+        assert torch.equal(fn(*a), refs[name](*a))
+        assert fn.launches == before
+
+
+def test_plain_versions_raise_on_an_index_out_of_range():
+    tab = torch.zeros((8, 128))
+    ix = torch.zeros((8, 128), dtype=torch.int32)
+    ix[3, 5] = 128
+    with pytest.raises(RuntimeError):
+        gs.lane_gather(tab, ix)
+    with pytest.raises(RuntimeError):
+        gs.sublane_gather(tab, ix)
+
+
+def _offset_views(device="cpu"):
+    """(T, W) = (64, 8) views of one buffer at offsets of 0 and 1 floats."""
+    buf = torch.arange(64 * 8 + 4, dtype=torch.float32, device=device)
+    return buf[:64 * 8].view(64, 8), buf[1:1 + 64 * 8].view(64, 8)
+
+
+def test_row_gather_moves_float4s_only_from_an_aligned_table():
+    aligned, shifted = _offset_views()
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 4
+    assert gs.float4_rows(aligned)
+    assert not gs.float4_rows(shifted)  # a view 4 bytes in takes the float path
+    assert not gs.float4_rows(torch.zeros((64, 6)))  # rows of 6 floats
+    idx = torch.as_tensor(_indices(np.random.default_rng(1), (50,), 64))
+    assert torch.equal(gs.row_gather(shifted, idx), shifted[idx.long()])
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_gather_scatter_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    cases = []
+    for t, w, n in ROW_SHAPES + [(1000, 3, 100_003)]:
+        table = torch.as_tensor(rng.standard_normal((t, w)).astype(np.float32)).cuda()
+        ix = torch.as_tensor(_indices(rng, (n,), t)).cuda()
+        cases += [(gs.row_gather, gs.row_gather_ref, (table, ix)),
+                  (gs.col_gather, gs.col_gather_ref, (table.T.contiguous(), ix))]
+    for rows, chunks in SLAB_SHAPES + [(4096, 5)]:
+        tab = torch.as_tensor(rng.standard_normal((rows, 128)).astype(np.float32)).cuda()
+        ix = torch.as_tensor(_indices(rng, (chunks, rows, 128), rows)).cuda()
+        cases += [(gs.lane_gather, gs.lane_gather_ref, (tab, ix[0] % 128)),
+                  (gs.sublane_gather, gs.sublane_gather_ref, (tab, ix[0].contiguous())),
+                  (gs.two_stage_gather, gs.two_stage_gather_ref, (tab, ix))]
+    ix = torch.as_tensor(_indices(rng, (1000,), 64)).cuda()
+    cases += [(gs.row_gather, gs.row_gather_ref, (view, ix)) for view in _offset_views("cuda")]
+    for fn, ref, a in cases:
+        before = fn.launches
+        assert torch.equal(fn(*a), ref(*a)), fn.__name__
+        assert fn.launches == before + 1
+    # Updates whose every partial sum is exact in bf16 (small integers, 12
+    # rows an entry, sums below 2^8): any order of the atomics gives the
+    # exact sum, so every variant equals its plain version bit for bit.
+    t, k = 4096, 12
+    idx = torch.as_tensor(rng.permutation(np.repeat(np.arange(t, dtype=np.int32), k))).cuda()
+    upd = torch.as_tensor(rng.integers(-4, 5, (t * k, 16)).astype(np.float32)).cuda()
+    exact = torch.zeros((t, 16), device="cuda").index_add_(0, idx.long(), upd)
+    for nshadow, acc in VARIANTS:
+        out = gs.row_scatter_add(idx, upd, t, nshadow, getattr(torch, acc))
+        assert torch.equal(out, gs.row_scatter_add_ref(idx, upd, t, nshadow, getattr(torch, acc)))
+        assert torch.equal(out, exact)
+    # Normal draws at the probe's shapes (4 rows an entry): the atomics add
+    # in a varying order. f32 within 1e-6 of the largest entry of its plain
+    # version and of the exact sum; bf16, whose running sums round, within
+    # 1e-2 of it of the exact sum (1e-2 is about two bf16 ulps of the
+    # largest entry, so two orders can differ from each other by more).
+    t, n = 65536, 262144
+    idx = torch.as_tensor(_indices(rng, (n,), t)).cuda()
+    upd = torch.as_tensor(rng.standard_normal((n, 16)).astype(np.float32)).cuda()
+    exact = torch.zeros((t, 16), dtype=torch.float64, device="cuda").index_add_(0, idx.long(), upd.double())
+    scale = float(exact.abs().max())
+    for nshadow, acc in VARIANTS:
+        out = gs.row_scatter_add(idx, upd, t, nshadow, getattr(torch, acc))
+        if acc == "float32":
+            ref = gs.row_scatter_add_ref(idx, upd, t, nshadow, torch.float32)
+            assert float((out - ref).abs().max()) <= 1e-6 * scale
+        assert float((out.double() - exact).abs().max()) <= (1e-6 if acc == "float32" else 1e-2) * scale
+    torch.cuda.synchronize()

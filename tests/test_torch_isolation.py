@@ -3,6 +3,7 @@ the JAX package, its entry points and public constructors default to the
 card and raise without one (no CPU fallback), and the encoders not yet
 ported say so."""
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -95,3 +96,13 @@ def test_unported_paths_raise(impl):
         tnerf.init_nerf(torch.Generator(), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=impl):
         tnerf.query_sigma_t({}, torch.zeros((3, 4)), cfg)
+
+
+@pytest.mark.parametrize("probe", ["bench_dyngather", "bench_gather", "bench_gather2", "bench_honest",
+                                   "bench_lane_gather", "bench_pallas_scatter"])
+def test_probes_default_to_the_card(probe):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    module = importlib.import_module(f"loner_tpu_torch.probes.{probe}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main([])

@@ -171,3 +171,36 @@ def rel_err(a, b) -> float:
     num = sum(float(np.sum((x.astype(np.float64) - y) ** 2)) for x, y in zip(la, lb))
     den = sum(float(np.sum(y.astype(np.float64) ** 2)) for y in lb)
     return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def load_script(name: str):
+    """The module of ``scripts/<name>.py``, loaded from its file. Some of those
+    scripts point JAX's persistent compilation cache at a directory
+    (``$JAX_CACHE_DIR``, created on import) when imported: the directory is a
+    temporary one here, and the cache settings, ``sys.path`` and the
+    environment are restored after the import."""
+    import importlib.util
+    import os
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    saved = {k: getattr(jax.config, k) for k in
+             ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
+    saved_path, saved_env = list(sys.path), os.environ.get("JAX_CACHE_DIR")
+    spec = importlib.util.spec_from_file_location(f"_script_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ["JAX_CACHE_DIR"] = cache_dir
+        try:
+            spec.loader.exec_module(module)
+        finally:
+            for k, v in saved.items():
+                jax.config.update(k, v)
+            sys.path[:] = saved_path
+            if saved_env is None:
+                os.environ.pop("JAX_CACHE_DIR", None)
+            else:
+                os.environ["JAX_CACHE_DIR"] = saved_env
+    return module
