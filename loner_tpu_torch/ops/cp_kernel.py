@@ -13,6 +13,7 @@ features ``(L*F, N)`` f32.
   ``csrc/cp_kernel.cu``, replacing ``loner_tpu/ops/cp_kernel.py::_fwd_kernel``
   and ``::_bwd_kernel``). Each takes its plain version for a CPU tensor and
   launches its kernel for a CUDA tensor; ``launches`` counts the launches.
+  :func:`cp_bwd_plan` sizes B2's launch and refuses lines it cannot take.
 * :func:`cp_encode_ref` / :func:`cp_bwd_ref` are the plain versions. The plain
   backward is written by hand after ``_bwd_kernel``, not taken from autograd:
   ``dpts`` is zero outside the open interval 0 < x < 1.
@@ -30,7 +31,7 @@ forward stay exact f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -209,6 +210,56 @@ def cp_fwd_gather(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Seque
 cp_fwd_gather.launches = 0
 
 
+CP_MAX_LEVELS = 8
+CP_BWD_RUN = 16  # consecutive points a B2 thread walks (fixed in csrc/cp_kernel.cu)
+CP_BWD_MAX_THREADS = 256  # the kernel's __launch_bounds__
+CP_BWD_CELL_POINTS = 4096  # most (level, point) cells a B2 block stages per tile
+
+
+class CpBwdPlan(NamedTuple):
+    """B2's launch: each of ``runs * feature_lanes`` threads walks ``run``
+    consecutive points of a ``tile = runs * run`` point tile for one feature
+    lane (features lane, lane + feature_lanes, ...); ``threads`` is that
+    count rounded up to whole warps; ``smem_bytes`` holds the block's dlines
+    (3 * sum(res) rows at a stride of F | 1 floats, padded to 16 bytes), the
+    larger of the tile's cells (4 words per point and level) and its dpts
+    partial sums (3 * feature_lanes + 1 floats per point; none at F = 16,
+    where the sums are reduced over a half-warp by shuffles), and the next
+    tile's points and the tile's live masks (4 words per point)."""
+
+    run: int
+    runs: int
+    feature_lanes: int
+    threads: int
+    tile: int
+    smem_bytes: int
+
+
+def cp_bwd_plan(resolutions: Sequence[int], n_features: int) -> CpBwdPlan:
+    """B2's launch for these lines; raises ``ValueError`` where they do not
+    fit (more than 8 levels, a resolution outside [2, 128], or more shared
+    memory than a block may have)."""
+    n_levels = len(resolutions)
+    if not 1 <= n_levels <= CP_MAX_LEVELS:
+        raise ValueError(f"cp backward takes 1 to {CP_MAX_LEVELS} levels, got {n_levels}")
+    for r in resolutions:
+        if not 2 <= int(r) <= CP_PAD_R:
+            raise ValueError(f"cp resolution {r} outside [2, {CP_PAD_R}]")
+    if n_features < 1:
+        raise ValueError(f"cp backward needs at least one feature, got {n_features}")
+    lanes = min(n_features, CP_BWD_MAX_THREADS)
+    run = CP_BWD_RUN
+    runs = max(1, min(CP_BWD_MAX_THREADS // lanes, CP_BWD_CELL_POINTS // (run * n_levels)))
+    tile = runs * run
+    table = 3 * sum(int(r) for r in resolutions) * (n_features | 1)
+    parts = 0 if n_features == 16 else tile * (3 * lanes + 1)
+    smem = 4 * (-(-table // 4) * 4 + max(4 * n_levels * tile, parts) + 4 * tile)
+    if smem > _SMEM_BYTES:
+        raise ValueError(f"cp backward: {smem} bytes of shared memory for F={n_features}, "
+                         f"res {tuple(resolutions)}; a block has {_SMEM_BYTES}")
+    return CpBwdPlan(run, runs, lanes, -(-lanes * runs // 32) * 32, tile, smem)
+
+
 def cp_bwd(
     lines_t: torch.Tensor,
     pts_t: torch.Tensor,
@@ -222,6 +273,7 @@ def cp_bwd(
         return cp_bwd_ref(lines_t, pts_t, g, resolutions, n_features, mm)
     bf16 = _check_mm(mm)
     res = _check_args(lines_t, pts_t, resolutions, n_features)
+    plan = cp_bwd_plan(resolutions, n_features)
     n = pts_t.shape[1]
     kernels.require(g, "g", torch.float32, (len(resolutions) * n_features, n))
     dlines = torch.zeros_like(lines_t)
@@ -232,7 +284,7 @@ def cp_bwd(
         rc = kernels.load().loner_cp_bwd(
             pts_t.data_ptr(), lines_t.data_ptr(), g.data_ptr(), dlines.data_ptr(), dpts.data_ptr(),
             n, len(resolutions), n_features, ctypes.cast(res, ctypes.c_void_p), int(bf16),
-            kernels.stream_ptr(pts_t),
+            plan.runs, plan.threads, plan.smem_bytes, kernels.stream_ptr(pts_t),
         )
     kernels.check(rc, "cp_bwd")
     cp_bwd.launches += 1

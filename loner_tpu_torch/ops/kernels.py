@@ -39,8 +39,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # pts, lines, out, n, n_levels, n_features, res, stream
     "loner_cp_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
-    # pts, lines, g, dlines, dpts, n, n_levels, n_features, res, mm_bf16, stream
-    "loner_cp_bwd": (_P, _P, _P, _P, _P, _LL, _I, _I, _P, _I, _P),
+    # pts, lines, g, dlines, dpts, n, n_levels, n_features, res, mm_bf16,
+    # runs, threads, smem_bytes, stream
+    "loner_cp_bwd": (_P, _P, _P, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _LL, _P),
     # bins, cdf, u, out, n_rays, m, k, eps, stream
     "loner_pdf_sample": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # pts, v_t, out, n, n_levels, n_features, scales, stream

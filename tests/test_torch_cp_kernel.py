@@ -155,24 +155,132 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
         tcp.cp_encode_t(torch.as_tensor(lines), torch.as_tensor(pts), res, f, mm="f16")
 
 
+# every CP configuration in the repo: the flagship triad,
+# tests/torch_parity.py's TRIAD and tests/test_torch_isolation.py's triad
+CP_CONFIGS = {"flagship": ((16, 32, 64, 128), 16), "parity": ((4, 8), 4), "isolation": ((4,), 2)}
+
+
+@pytest.mark.parametrize("config", sorted(CP_CONFIGS))
+def test_cp_bwd_plan_fits_every_configuration(config):
+    res, f = CP_CONFIGS[config]
+    plan = tcp.cp_bwd_plan(res, f)
+    assert plan.smem_bytes <= 232_448
+    assert plan.tile == plan.runs * plan.run and plan.feature_lanes == min(f, tcp.CP_BWD_MAX_THREADS)
+    assert plan.runs * plan.feature_lanes <= plan.threads <= tcp.CP_BWD_MAX_THREADS
+    table = -(-3 * sum(res) * (f | 1) // 4) * 4  # padded to 16 bytes
+    cells = 4 * len(res) * plan.tile
+    parts = 0 if f == 16 else plan.tile * (3 * plan.feature_lanes + 1)
+    assert plan.smem_bytes == 4 * (table + 4 * plan.tile + max(cells, parts))
+
+
+def test_cp_bwd_plan_at_the_flagship():
+    """Two blocks an SM at the flagship: 16 runs of 16 points, 256 threads,
+    69,440 bytes of shared memory (no partial-sum area at F = 16)."""
+    plan = tcp.cp_bwd_plan(*CP_CONFIGS["flagship"])
+    assert (plan.run, plan.runs, plan.threads, plan.tile, plan.smem_bytes) == (16, 16, 256, 256, 69_440)
+    assert 2 * (plan.smem_bytes + 1024) <= 233_472  # an SM's 228 KB, 1 KB reserved per block
+
+
+@pytest.mark.parametrize("res", [(16, 32, 64, 128, 16, 32, 64, 128, 16), (129,), (1,), ()])
+def test_cp_bwd_plan_refuses_what_the_kernel_does_not_take(res):
+    with pytest.raises(ValueError):
+        tcp.cp_bwd_plan(res, 4)
+
+
+def test_cp_bwd_plan_refuses_a_table_too_large_for_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tcp.cp_bwd_plan((128,) * 8, 16)
+    with pytest.raises(ValueError):
+        tcp.cp_bwd_plan((4,), 0)
+
+
+@pytest.mark.parametrize("f", [1, 2, 5, 16, 33, 300])
+def test_cp_bwd_plan_gives_whole_warps(f):
+    plan = tcp.cp_bwd_plan((4, 8), f)
+    assert plan.threads % 32 == 0
+    assert plan.threads - 32 < plan.runs * plan.feature_lanes <= plan.threads
+
+
+def _card_points(kind, res, n, rng):
+    """(3, N) points: uniform, all in one cell of every level, or on cell
+    boundaries of every level with 0, 1 and points outside the cube."""
+    if kind == "uniform":
+        return rng.uniform(size=(3, n)).astype(np.float32)
+    if kind == "one_cell":
+        return (0.5 + 1e-3 * rng.uniform(size=(3, n))).astype(np.float32)
+    r = rng.choice(np.asarray(res), size=(3, n))
+    pts = (rng.integers(0, r) / (r - 1)).astype(np.float32)
+    pts[:, : min(n, 4)] = np.array([0.0, 1.0, -0.25, 1.5], np.float32)[: min(n, 4)]
+    return pts
+
+
+_T = tcp.cp_bwd_plan(*CP_CONFIGS["flagship"]).tile
+FLAG_RES = CP_CONFIGS["flagship"][0]
+BWD_CARD_CASES = {
+    "rays": ("rays", FLAG_RES, 16, None),
+    "uniform_n100003": ("uniform", FLAG_RES, 16, 100_003),
+    "uniform_n100000": ("uniform", FLAG_RES, 16, 100_000),
+    "one_cell": ("one_cell", FLAG_RES, 16, 4096),
+    "boundaries": ("boundaries", FLAG_RES, 16, 5000),
+    **{f"n{n}": ("uniform", FLAG_RES, 16, n) for n in (1, 31, 33, _T - 1, _T + 1)},
+    "f2": ("uniform", FLAG_RES, 2, 10_000),
+    "f5": ("uniform", FLAG_RES, 5, 10_001),
+    "f300_chunks": ("uniform", (4,), 300, 1000),
+    "l1_res2": ("boundaries", (2,), 16, 3000),
+    "l1_res128": ("uniform", (128,), 16, 3000),
+    "l8": ("uniform", (2, 4, 8, 16, 32, 64, 128, 128), 2, 20_000),
+    "l8_f5": ("boundaries", (16, 16, 32, 32, 64, 64, 128, 128), 5, 7777),
+}
+
+
+def _card_rays_points():
+    """Ray-ordered points built as chip_smoke.py builds them, from the
+    flagship's sampler at a reduced ray count (2 keyframes x 80 rays x 512
+    samples)."""
+    from loner_tpu_torch.flagship import flagship
+    from loner_tpu_torch.mapping import optimizer as opt
+
+    dev = torch.device("cuda", 0)
+    small = opt.MapperConfig()._replace(window_size=2, max_keyframes=4, rays_per_kf=64, sky_rays_per_kf=16)
+    cfg, cube, state, window = flagship(device=dev, cfg=small, n_keyframes=2)
+    draws = opt.draw_step(cfg, window, torch.Generator(device=dev).manual_seed(1), dev)
+    with torch.no_grad():
+        bundle = opt.build_window_rays(state.poses, window, cube.to(dev), cfg, draws.ray_idx, draws.sky_idx)
+        z = opt.sampling.occ_grid_sampler_z_vals(bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb,
+                                                 draws.u_strat, draws.u_pdf)
+        pts = (bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z[None]).reshape(3, -1)
+    return ((pts + 1.0) / 2.0).contiguous()
+
+
 @pytest.mark.gpu
-def test_cp_kernels_match_plain_on_card():
+@pytest.mark.parametrize("case", sorted(BWD_CARD_CASES))
+def test_cp_kernels_match_plain_on_card(case):
+    """B1 bit-equal to its plain version; B2 against ``cp_bwd_ref`` in f32
+    and bf16: dlines within 1e-4 of its largest entry (atomics and runs add
+    in their own order), dpts within rtol/atol 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    res, f, n = SIZES["flagship"]
-    for seed, n_pts in ((0, n), (1, 100_003)):
-        lines, pts, g = (torch.as_tensor(a).cuda() for a in _inputs(res, f, n_pts, seed))
-        before = (tcp.cp_fwd.launches, tcp.cp_bwd.launches)
-        out = tcp.cp_fwd(lines, pts, res, f)
-        assert torch.equal(out, tcp.cp_encode_ref(lines, pts, res))  # same op order, no FMA
-        for mm in ("f32", "bf16"):
-            dl, dp = tcp.cp_bwd(lines, pts, g, res, f, mm)
-            dl_ref, dp_ref = tcp.cp_bwd_ref(lines, pts, g, res, f, mm)
-            # atomics add in a varying order: normwise bound on dlines
-            assert float((dl - dl_ref).abs().max()) <= 1e-4 * float(dl_ref.abs().max())
-            torch.testing.assert_close(dp, dp_ref, rtol=1e-4, atol=1e-4)
-        torch.cuda.synchronize()
-        assert (tcp.cp_fwd.launches, tcp.cp_bwd.launches) == (before[0] + 1, before[1] + 2)
+    kind, res, f, n = BWD_CARD_CASES[case]
+    rng = np.random.default_rng(sorted(BWD_CARD_CASES).index(case))
+    pts = _card_rays_points() if kind == "rays" else torch.as_tensor(_card_points(kind, res, n, rng)).cuda()
+    n = pts.shape[1]
+    lines = torch.zeros((3 * len(res), f, 128), dtype=torch.float32)
+    for i, r in enumerate(np.repeat(res, 3)):
+        lines[i, :, :r] = torch.as_tensor(1.0 + 0.1 * rng.standard_normal((f, r)), dtype=torch.float32)
+    lines = lines.cuda()
+    g = torch.as_tensor(rng.standard_normal((len(res) * f, n)), dtype=torch.float32).cuda()
+    before = (tcp.cp_fwd.launches, tcp.cp_bwd.launches)
+    out = tcp.cp_fwd(lines, pts, res, f)
+    assert torch.equal(out, tcp.cp_encode_ref(lines, pts, res))  # same op order, no FMA
+    for mm in ("f32", "bf16"):
+        dl, dp = tcp.cp_bwd(lines, pts, g, res, f, mm)
+        dl_ref, dp_ref = tcp.cp_bwd_ref(lines, pts, g, res, f, mm)
+        assert float((dl - dl_ref).abs().max()) <= 1e-4 * float(dl_ref.abs().max()), mm
+        torch.testing.assert_close(dp, dp_ref, rtol=1e-4, atol=1e-4)
+        for lvl, r in enumerate(res):  # padded rows get no gradient
+            assert float(dl[3 * lvl : 3 * lvl + 3, :, r:].abs().sum()) == 0.0
+    torch.cuda.synchronize()
+    assert (tcp.cp_fwd.launches, tcp.cp_bwd.launches) == (before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.gpu
