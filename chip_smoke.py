@@ -1,4 +1,5 @@
-"""Drive the PyTorch port of the mapper on one CUDA card, and check it.
+"""Drive the PyTorch port (the mapper, and the online SLAM loop) on one CUDA
+card, and check it.
 
 Run from the root of a checkout, with one card:
 
@@ -34,6 +35,15 @@ In order:
       read just after: each must launch its kernels as often as its own
       constants say, and every leg's numbers must be finite and its kernel
       results equal to their plain counterparts;
+  3c. run the online SLAM loop (``LonerSLAM``) with cfg/defaults.yaml on the
+      synthetic loop of 48 poses at the flagship scan width, every launch
+      count set to 0 just before and read just after: B1-B3 once per train
+      step of the keyframe schedule, the tracking ATE under 0.3 m, every pose
+      finite; tracking ms per frame, each keyframe window's ms and its/s,
+      tracking and keyframe ATE; one frame pair's ICP and one scan's motion
+      compensation on the card against the CPU, and a profile of five ICP
+      calls (chiprun_out/icp_profile.txt); a threaded run of 12 frames
+      checked for the output files (into chiprun_out/slam*/);
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -107,17 +117,30 @@ def _rel(a, b) -> float:
     return math.sqrt(num / max(den, 1e-300))
 
 
-def _profile(step, state, window, flags, mask, n_steps: int, wall_ms: float, path: Path) -> None:
-    """Device time by operator over ``n_steps`` train steps (torch.profiler,
-    after one unrecorded warm-up step), and the device's idle share against
-    ``wall_ms``, the step time measured without the profiler, into ``path``."""
+def _steps(step, state, window, flags, mask):
+    """One train step per call, threading the state: the unit ``_profile``
+    runs."""
+    box = {"state": state, "it": 0}
+
+    def run():
+        box["state"], _ = step(box["state"], window, flags, mask, box["it"])
+        box["it"] += 1
+
+    return run
+
+
+def _profile(run_once, n_steps: int, wall_ms: float, path: Path, unit: str = "step") -> dict:
+    """Device time by operator over ``n_steps`` calls of ``run_once``
+    (torch.profiler, after one unrecorded warm-up call), and the device's
+    idle share against ``wall_ms``, the call's time measured without the
+    profiler, into ``path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=n_steps), acc_events=True) as prof:
-        for it in range(n_steps + 1):
-            state, _ = step(state, window, flags, mask, it)
+        for _ in range(n_steps + 1):
+            run_once()
             torch.cuda.synchronize()
             prof.step()
     events = prof.key_averages()
@@ -129,12 +152,15 @@ def _profile(step, state, window, flags, mask, n_steps: int, wall_ms: float, pat
     # that launched it, so the host operators' sum is the busy time
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU and dev_ms(e) > 0), key=dev_ms, reverse=True)
     busy_ms = sum(dev_ms(e) for e in ops)
-    lines = [f"{n_steps} steps; per step: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
-             f"(wall measured without the profiler), idle share {1 - busy_ms / wall_ms:.3f}",
-             "self device ms/step  calls/step  operator"]
+    calls = sum(e.count for e in ops) / n_steps
+    lines = [f"{n_steps} {unit}s; per {unit}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+             f"(wall measured without the profiler), idle share {1 - busy_ms / wall_ms:.3f}, "
+             f"{calls:.0f} operators with device time",
+             f"self device ms/{unit}  calls/{unit}  operator"]
     lines += [f"{dev_ms(e):10.4f}  {e.count / n_steps:8.1f}  {e.key[:90]}" for e in ops[:30]]
     path.write_text("\n".join(lines) + "\n")
     print("\n".join(lines[:16]))
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms, "operators": calls}
 
 
 def _drive(name, opt, cfg, cube, state, window, plan, wrappers, expected):
@@ -439,6 +465,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     del out
     ms = _event_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf), 200, 5)
     plain_ms = _event_ms(lambda: cp_kernel.cp_fwd_gather_ref(lines, pts, res), 3, 1)
+    details["cp_fwd_gather_graph_ms"] = {"kernel": _graph_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf))}
     entries.append(_entry("cp_fwd_gather", "cp_gather.cu", "scripts/bench_lane_gather.py:48", err, ms, plain_ms,
                           b1_bound, None))
     details["cp_fwd_gather_vs_b1"] = err_b1
@@ -500,6 +527,154 @@ def _run_probes(wrappers):
         runs[name] = {"legs": result["legs"], "launches": launches}
         torch.cuda.empty_cache()
     return runs
+
+
+def _online_slam(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)) -> dict:
+    """The port's LonerSLAM on the card with cfg/defaults.yaml (ray range the
+    scene's (1, 40); motion compensation off: the synthetic scans are each
+    taken from one pose, so compensating them adds motion they do not have)
+    over the synthetic loop of 48 poses, scans of 32 x 512 returns padded to
+    16384 and 1024 sky directions padded to the 4096 sky budget. Every
+    launch count is set to 0 just before the run and read just after: B1-B3
+    must launch once per train step the schedule ran, B4/B5 never. Fails on
+    a tracking ATE of 0.3 m or more or a non-finite pose. Then one frame
+    pair's ICP and one scan's motion compensation on the card against the
+    CPU, and a threaded run of 12 frames checked for the output contract."""
+    import numpy as np
+
+    from loner_tpu_torch.config.build import build_slam_config
+    from loner_tpu_torch.config.settings import load_settings
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
+    from loner_tpu_torch.geometry.motion import motion_compensate
+    from loner_tpu_torch.geometry.world_cube import compute_world_cube
+    from loner_tpu_torch.slam import LonerSLAM
+    from loner_tpu_torch.tracking.icp import make_icp
+
+    ray_range = (1.0, 40.0)
+    overrides = {"data": {"ray_range": list(ray_range)}, "tracker": {"motion_compensation": {"enabled": False}}}
+    settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides=overrides)
+    scene = synthetic.Scene.default()
+    poses, ts = synthetic.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
+    gt = np.linalg.inv(poses[0])[None] @ poses  # the tracker's frame: the first pose
+    cube = compute_world_cube(poses, ray_range=ray_range, rebase_to_first_pose=True)
+    n_sky_pad = build_slam_config(settings, cube.scale_factor).mapper.n_sky_pad
+    scans = []
+    for T, t0 in zip(poses, ts):
+        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t0, n_channels=32, n_azimuth=512,
+                                                           max_range=ray_range[1])
+        scans.append((make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384),
+                      sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t0, pad_to=n_sky_pad)))
+
+    def run(n_frames, single_threaded, run_dir):
+        cfg = build_slam_config(settings, cube.scale_factor)
+        cfg.single_threaded = single_threaded
+        slam = LonerSLAM(cfg, cube, device=dev)
+        est = [slam.process_scan(scan, t0, gt_pose=g, sky=sky)
+               for (scan, sky), t0, g in zip(scans[:n_frames], ts, gt)]
+        slam.stop(str(run_dir))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return slam, np.stack(est)
+
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    slam, est = run(len(poses), True, out_dir / "slam")
+    wall_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    mapper = slam.mapper
+    kfs = mapper.kf_manager.keyframes
+    # the schedule's steps for each optimization pass (one per keyframe)
+    expected_steps = sum(p.num_iterations for i in range(1, len(kfs) + 1) for p in mapper._phases_for_kf(i))
+    # the hash-off train step: B1-B3 once per step, the hash kernels never
+    expected = {w.__name__: expected_steps if w.__name__ in ("cp_fwd", "cp_bwd", "pdf_sample") else 0
+                for w in wrappers}
+    track_ms = np.asarray(slam.tracker.track_times) * 1e3
+    windows = [{"ms": dt * 1e3, "iterations": n, "its_per_s": n / dt} for dt, n in mapper.window_timer.rows]
+    ate = float(np.sqrt(np.mean(np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1) ** 2)))
+    kf_opt = np.stack([mapper.optimized_pose(k) for k in kfs])
+    kf_gt = np.stack([k.gt_pose for k in kfs])
+    kf_tracked = np.stack([k.tracked_pose for k in kfs])
+    kf_ate = float(np.sqrt(np.mean(np.linalg.norm(kf_opt[:, :3, 3] - kf_gt[:, :3, 3], axis=1) ** 2)))
+    kf_tracked_ate = float(np.sqrt(np.mean(np.linalg.norm(kf_tracked[:, :3, 3] - kf_gt[:, :3, 3], axis=1) ** 2)))
+    res = {
+        "frames": len(est), "keyframes": [k.timestamp for k in kfs], "train_steps": mapper._host_step,
+        "expected_steps": expected_steps, "launches": launches, "wall_s": wall_s,
+        "track_ms_median": float(np.median(track_ms)), "track_ms_p90": float(np.percentile(track_ms, 90)),
+        "track_ms_first": float(track_ms[0]), "windows": windows, "reference_its_per_s": 16.7,
+        "tracking_ate_m": ate, "keyframe_ate_m": kf_ate, "keyframe_tracked_ate_m": kf_tracked_ate,
+        "skipped_steps": int(mapper.state.skipped_steps),
+    }
+    print(f"online SLAM: {len(est)} frames, keyframes at {res['keyframes']}, {mapper._host_step} train steps, "
+          f"{wall_s:.1f} s; tracking ms median {res['track_ms_median']:.2f} p90 {res['track_ms_p90']:.2f} "
+          f"(first frame {res['track_ms_first']:.2f})", flush=True)
+    print("online SLAM windows (ms, iterations, its/s; reference budget 16.7 its/s): " + "; ".join(
+        f"{w['ms']:.1f}, {w['iterations']}, {w['its_per_s']:.2f}" for w in windows))
+    print(f"online SLAM: tracking ATE {ate:.4f} m, keyframe ATE {kf_ate:.4f} m (tracked at the keyframes "
+          f"{kf_tracked_ate:.4f} m); launches {launches} (expected {expected})")
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(kf_opt))):
+        raise AssertionError("online SLAM: a non-finite pose")
+    if not ate < 0.3:
+        raise AssertionError(f"online SLAM: tracking ATE {ate:.4f} m, at or over the 0.3 m gate")
+    if launches != expected or mapper._host_step != expected_steps or res["skipped_steps"]:
+        raise AssertionError(f"online SLAM: launches {launches} over {mapper._host_step} steps "
+                             f"({res['skipped_steps']} skipped), expected {expected}")
+    for name in ("tracking_only", "estimated_trajectory", "keyframe_trajectory", "online_estimates"):
+        if not np.all(np.isfinite(np.loadtxt(out_dir / "slam" / "trajectory" / f"{name}.txt"))):
+            raise AssertionError(f"online SLAM: non-finite {name}.txt")
+
+    # one frame pair's ICP, and one scan's motion compensation, card against CPU
+    cpu = torch.device("cpu")
+    (src, sv), (tgt, tv) = slam.tracker._extract_cloud(scans[1][0]), slam.tracker._extract_cloud(scans[0][0])
+    icp_cfg = slam.cfg.tracker.icp
+    args = [src, sv, tgt, tv, torch.eye(4, device=dev)]
+    T_card, rmse_card, fit_card = make_icp(icp_cfg, dev)(*args)
+    T_cpu, rmse_cpu, fit_cpu = make_icp(icp_cfg, cpu)(*(a.cpu() for a in args))
+    icp_err = float((T_card.cpu() - T_cpu).abs().max())
+    if dev.type == "cuda":
+        # where a frame's ICP spends its time: device busy against wall
+        icp = make_icp(icp_cfg, dev)
+        wall = []
+        for _ in range(6):
+            t = time.perf_counter()
+            icp(*args)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        res["icp_profile"] = _profile(lambda: icp(*args), 5, sum(wall[1:]) / 5, out_dir / "icp_profile.txt", "ICP")
+    scan = scans[3][0]
+    mc_args = [torch.as_tensor(np.asarray(a, np.float32)) for a in (
+        scan.ray_directions, scan.distances, scan.timestamps, gt[2], gt[3], ts[2], ts[3], gt[3])]
+    d_card, r_card = motion_compensate(*(a.to(dev) for a in mc_args))
+    d_cpu, r_cpu = motion_compensate(*mc_args)
+    mc_err = max(float((d_card.cpu() - d_cpu).abs().max()), float((r_card.cpu() - r_cpu).abs().max()))
+    print(f"ICP of frames 1 -> 0 on the card against the CPU: T max abs diff {icp_err:.3e} (bound 1e-4); "
+          f"rmse {float(rmse_card):.6f} / {float(rmse_cpu):.6f}, fitness {float(fit_card):.4f} / "
+          f"{float(fit_cpu):.4f}; motion compensation max abs diff {mc_err:.3e} (bound 1e-5)")
+    if not (icp_err <= 1e-4 and mc_err <= 1e-5):
+        raise AssertionError(f"card and CPU disagree: ICP {icp_err}, motion compensation {mc_err}")
+    res.update(icp_card_vs_cpu=icp_err, motion_compensation_card_vs_cpu=mc_err)
+    del slam, mapper
+
+    # the threaded mode: 12 frames, the mapper on a worker thread
+    t0 = time.perf_counter()
+    tslam, test = run(12, False, out_dir / "slam_threaded")
+    contract = ["trajectory/tracking_only.txt", "trajectory/estimated_trajectory.txt",
+                "trajectory/keyframe_trajectory.txt", "trajectory/online_estimates.txt",
+                "trajectory/groundtruth.txt", "track_times.csv", "map_times.csv", "timing.csv",
+                "checkpoints/kf_poses.npz", f"checkpoints/ckpt_{tslam.mapper._host_step}/state.pt"]
+    missing = [f for f in contract if not (out_dir / "slam_threaded" / f).exists()]
+    tracked = np.loadtxt(out_dir / "slam_threaded" / "trajectory" / "tracking_only.txt")
+    print(f"online SLAM, threaded: 12 frames, {len(tslam.mapper.kf_manager)} keyframe(s), "
+          f"{tslam.mapper._host_step} steps, {time.perf_counter() - t0:.1f} s; output files missing: {missing}")
+    if missing or tracked.shape != (12, 8) or not np.all(np.isfinite(tracked)) or not np.all(np.isfinite(test)):
+        raise AssertionError(f"threaded SLAM: missing {missing}, tracking_only {tracked.shape}")
+    if np.abs(test[:, :3, 3] - est[:12, :3, 3]).max() > 1e-3:
+        raise AssertionError("threaded SLAM tracked other poses than the single-threaded run")
+    res["threaded"] = {"steps": tslam.mapper._host_step, "contract": contract}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> None:
@@ -701,7 +876,8 @@ def main() -> None:
         {"cp_fwd": n_steps, "cp_bwd": n_steps, "pdf_sample": n_steps, "interp_fwd": 0, "interp_dpts": 0})
     for r in report[:3]:
         r["launches"] = paths["hash_off"]["launches"][r["name"]]
-    _profile(step, state, window, joint, mask, 5, paths["hash_off"]["step_ms"]["joint"], out_dir / "step_profile.txt")
+    _profile(_steps(step, state, window, joint, mask), 5, paths["hash_off"]["step_ms"]["joint"],
+             out_dir / "step_profile.txt")
     del step, state, window
     torch.cuda.empty_cache()
 
@@ -713,7 +889,7 @@ def main() -> None:
         {"cp_fwd": n_steps, "cp_bwd": n_steps, "pdf_sample": n_steps, "interp_fwd": n_steps, "interp_dpts": n_pose})
     for r in report[3:]:
         r["launches"] = paths["triad_hash"]["launches"][r["name"]]
-    _profile(step, hstate, hwindow, joint, mask, 5, paths["triad_hash"]["step_ms"]["joint"],
+    _profile(_steps(step, hstate, hwindow, joint, mask), 5, paths["triad_hash"]["step_ms"]["joint"],
              out_dir / "step_profile_hash.txt")
     del step, hstate, hwindow
     torch.cuda.empty_cache()
@@ -726,7 +902,7 @@ def main() -> None:
         "fused", opt, fcfg, fcube, fstate, fwindow, fplan, wrappers,
         {"cp_fwd": 0, "cp_bwd": 0, "pdf_sample": len(fplan), "interp_fwd": len(fplan),
          "interp_dpts": sum(1 for _, f in fplan if not f.freeze_poses)})
-    _profile(step, fstate, fwindow, joint, mask, 5, paths["fused"]["step_ms"]["joint"],
+    _profile(_steps(step, fstate, fwindow, joint, mask), 5, paths["fused"]["step_ms"]["joint"],
              out_dir / "step_profile_fused.txt")
     del step, fstate, fwindow
     torch.cuda.empty_cache()
@@ -738,6 +914,11 @@ def main() -> None:
     for r in probe_entries:
         r["launches"] = sum(p["launches"][r["name"]] for p in probes.values())
     report += probe_entries
+
+    # ---- the online SLAM loop: cfg/defaults.yaml on the synthetic loop ----
+    slam = _online_slam(Path(__file__).resolve().parent, out_dir, wrappers)
+    for r in report[:3]:
+        r["slam_launches"] = slam["launches"][r["name"]]
 
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
@@ -764,7 +945,7 @@ def main() -> None:
         reduced[k] = _card_vs_cpu(opt, flagship, hc, dev, joint, 1e-4, f"{k}, float32 MLP, {hc.loss.loss_selection}",
                                   whole_step_gated=k != "fused", hash_scale=1e3)
 
-    summary = {"card": smi, "paths": paths, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+    summary = {"card": smi, "paths": paths, "online_slam": slam, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

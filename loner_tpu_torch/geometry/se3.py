@@ -90,14 +90,89 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
 
 def pose_to_matrix(p: torch.Tensor) -> torch.Tensor:
     """6-vector [t, w] (..., 6) -> homogeneous matrix (..., 4, 4)."""
-    R = exp_so3(p[..., 3:6])
-    t = p[..., 0:3]
+    return _homogeneous(exp_so3(p[..., 3:6]), p[..., 0:3])
+
+
+def matrix_to_pose(T: torch.Tensor) -> torch.Tensor:
+    """Homogeneous matrix (..., 4, 4) -> 6-vector (..., 6)."""
+    return torch.cat([T[..., :3, 3], log_so3(T[..., :3, :3])], dim=-1)
+
+
+def _homogeneous(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation and (..., 3) translation -> (..., 4, 4)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 
-def matrix_to_pose(T: torch.Tensor) -> torch.Tensor:
-    """Homogeneous matrix (..., 4, 4) -> 6-vector (..., 6)."""
-    return torch.cat([T[..., :3, 3], log_so3(T[..., :3, :3])], dim=-1)
+def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    return Ta @ Tb
+
+
+def inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of rigid transforms (..., 4, 4), from R^T and -R^T t."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    t_inv = -(Rt @ T[..., :3, 3, None])[..., 0]
+    return _homogeneous(Rt, t_inv)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) transforms to (..., N, 3) points."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [x, y, z, w] (..., 4) -> rotation matrix (..., 3, 3)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion [x, y, z, w] (..., 4), w >= 0.
+    Branch-free: all four Shepperd branches are computed and the one with the
+    largest squared component is kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw_sq = torch.clamp(1.0 + tr, min=0.0) / 4.0
+    qx_sq = torch.clamp(1.0 + m00 - m11 - m22, min=0.0) / 4.0
+    qy_sq = torch.clamp(1.0 - m00 + m11 - m22, min=0.0) / 4.0
+    qz_sq = torch.clamp(1.0 - m00 - m11 + m22, min=0.0) / 4.0
+
+    qw = torch.sqrt(qw_sq + _EPS)
+    q_w = torch.stack([(m21 - m12) / (4.0 * qw), (m02 - m20) / (4.0 * qw), (m10 - m01) / (4.0 * qw), qw], dim=-1)
+    qx = torch.sqrt(qx_sq + _EPS)
+    q_x = torch.stack([qx, (m01 + m10) / (4 * qx), (m02 + m20) / (4 * qx), (m21 - m12) / (4 * qx)], dim=-1)
+    qy = torch.sqrt(qy_sq + _EPS)
+    q_y = torch.stack([(m01 + m10) / (4 * qy), qy, (m12 + m21) / (4 * qy), (m02 - m20) / (4 * qy)], dim=-1)
+    qz = torch.sqrt(qz_sq + _EPS)
+    q_z = torch.stack([(m02 + m20) / (4 * qz), (m12 + m21) / (4 * qz), qz, (m10 - m01) / (4 * qz)], dim=-1)
+
+    best = torch.argmax(torch.stack([qx_sq, qy_sq, qz_sq, qw_sq], dim=-1), dim=-1)[..., None]
+    q = torch.where(best == 3, q_w, torch.where(best == 0, q_x, torch.where(best == 1, q_y, q_z)))
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0).to(q.dtype)
+
+
+def slerp_rotation(R0: torch.Tensor, R1: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Geodesic interpolation between rotations; ``alpha`` (...,) broadcasts."""
+    w = log_so3(R0.transpose(-1, -2) @ R1)
+    return R0 @ exp_so3(w * alpha[..., None])
+
+
+def interpolate_transform(T0: torch.Tensor, T1: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Lerp of the translation and slerp of the rotation; ``alpha`` (...,)
+    broadcasts against the batch dimensions of T0 and T1."""
+    t = T0[..., :3, 3] + (T1[..., :3, 3] - T0[..., :3, 3]) * alpha[..., None]
+    R = slerp_rotation(T0[..., :3, :3], T1[..., :3, :3], alpha)
+    return _homogeneous(R, t)

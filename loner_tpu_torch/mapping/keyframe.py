@@ -20,7 +20,7 @@ from loner_tpu_torch.device import resolve_device
 
 @dataclass
 class KeyFrame:
-    """Host-side keyframe record (the fields the mapper's train step reads)."""
+    """Host-side keyframe record."""
 
     scan: LidarScan
     timestamp: float
@@ -28,9 +28,26 @@ class KeyFrame:
     tracked_pose: np.ndarray  # (4, 4) tracker output at creation
     gt_pose: Optional[np.ndarray] = None  # (4, 4) ground truth, if known
     sky: Optional[LidarScan] = None
+    is_anchored: bool = False  # the first keyframe anchors the world frame
     # MASK ray selection: scan indices in the trunk band, cyclically padded
-    # to the scan budget (filled by the MASK slice; None -> uniform)
+    # to the scan budget (None -> uniform)
     band_indices: Optional[np.ndarray] = None
+
+    def compute_band_indices(self, z_range=(0.5, 8.0)):
+        """Fill ``band_indices`` from the best-known pose (ground truth, else
+        tracked): valid points whose world z lies in ``z_range``."""
+        pose = np.asarray(self.gt_pose if self.gt_pose is not None else self.tracked_pose)
+        dirs, dist = np.asarray(self.scan.ray_directions), np.asarray(self.scan.distances)
+        valid = np.asarray(self.scan.valid)
+        z = ((dirs * dist[:, None]) @ pose[:3, :3].T + pose[:3, 3])[:, 2]
+        idx = np.flatnonzero(valid & (z > z_range[0]) & (z < z_range[1]))
+        if len(idx) == 0:
+            idx = np.flatnonzero(valid)
+        if len(idx) == 0:
+            idx = np.zeros(1, np.int64)
+        p = len(valid)
+        self.band_indices = np.tile(idx, int(np.ceil(p / len(idx))))[:p].astype(np.int32)
+        return self
 
 
 class KeyFrameWindow(NamedTuple):

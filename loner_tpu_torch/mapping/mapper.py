@@ -1,0 +1,283 @@
+"""Online mapper: the keyframe gate and the schedule of train steps.
+
+The port of ``loner_tpu/mapping/mapper.py``: per accepted keyframe, run the
+keyframe schedule's phases (1000 steps on the first keyframe, then 50 joint
+steps per keyframe by default), each with its freeze flags and pose mask,
+over the window the KeyFrameManager picks; publish the optimized keyframe
+poses, keep the window timing, write loss CSVs and checkpoints on their
+cadence. Each iteration is one call of the port's train step on the
+mapper's device; the host loop reads nothing back from the device until the
+window ends.
+
+Random draws come from the mapper's ``torch.Generator`` (seeded with
+``seed + 1``, as the JAX mapper's key), or from ``step_draws`` when given:
+a callable of the window returning each step's :class:`StepDraws`, so that a
+caller can replay another source's draws.
+
+Not ported, and raising ``NotImplementedError``: the online camera phase
+(queue A item 9), a mapper mesh (item 13), the debug probe dumps, and the
+MASK and FIXED ray strategies (item 5).
+"""
+from __future__ import annotations
+
+import os
+import time
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from loner_tpu_torch.data.scan import LidarScan
+from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.geometry import se3
+from loner_tpu_torch.mapping.keyframe import KeyFrame, KeyFrameWindow, stack_window
+from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManager, KeyFrameManagerConfig, pose6_to_matrix
+from loner_tpu_torch.mapping.optimizer import (
+    MapperConfig,
+    MapperState,
+    StepDraws,
+    TrainStepFlags,
+    init_mapper_state,
+    make_train_step,
+)
+from loner_tpu_torch.runtime.checkpoints import save_checkpoint
+from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.runtime.profiling import WindowTimer
+
+
+@dataclass
+class IterationPhase:
+    """One entry of an iteration schedule (``keyframe_schedule`` in the cfg)."""
+
+    num_iterations: int
+    freeze_poses: bool = False
+    freeze_sigma_mlp: bool = False
+    freeze_rgb_mlp: bool = True
+    latest_kf_only: bool = False
+
+
+@dataclass
+class SchedulePhase:
+    num_keyframes: int  # -1 = all remaining
+    iteration_schedule: List[IterationPhase]
+
+
+def default_keyframe_schedule(skip_pose_refinement: bool = True) -> List[SchedulePhase]:
+    """1000 pose-frozen steps on the first keyframe, then per keyframe an
+    optional refinement of the latest pose (skipped by default) and 50 joint
+    steps."""
+    later = []
+    if not skip_pose_refinement:
+        later.append(IterationPhase(50, freeze_poses=False, freeze_sigma_mlp=True, latest_kf_only=True))
+    later.append(IterationPhase(50, freeze_poses=False, freeze_sigma_mlp=False))
+    return [SchedulePhase(1, [IterationPhase(1000, freeze_poses=True)]), SchedulePhase(-1, later)]
+
+
+@dataclass
+class OnlineCameraConfig:
+    """The online camera phase's configuration (the phase is queue A item 9;
+    ``enabled`` raises)."""
+
+    enabled: bool = False
+    K: Optional[np.ndarray] = None  # (3, 3) intrinsics
+    lidar_to_camera: Optional[np.ndarray] = None  # (4, 4)
+    iterations_per_window: int = 20
+    n_rays: int = 1024
+    mask_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+
+@dataclass
+class OnlineMapperConfig:
+    mapper: MapperConfig = field(default_factory=MapperConfig)
+    keyframe_manager: KeyFrameManagerConfig = field(default_factory=KeyFrameManagerConfig)
+    schedule: List[SchedulePhase] = field(default_factory=default_keyframe_schedule)
+    n_sky_pad: int = 64
+    seed: int = 0
+    # checkpoints: VERBOSE every keyframe, STANDARD every 10th, DISABLED none;
+    # pose states every keyframe unless DISABLED; a final one at stop
+    log_level: str = "STANDARD"
+    checkpoint_dir: Optional[str] = None
+    log_losses: bool = False  # per-keyframe, per-phase loss CSVs
+    loss_log_dir: Optional[str] = None
+    mesh_device_indices: Optional[List[int]] = None  # queue A item 13
+    camera: OnlineCameraConfig = field(default_factory=OnlineCameraConfig)
+    debug: DebugFlags = field(default_factory=DebugFlags)
+
+
+def _check_ported(cfg: OnlineMapperConfig) -> None:
+    if cfg.camera.enabled:
+        raise NotImplementedError("the online camera phase is not ported (ROADMAP.md, queue A item 9)")
+    if cfg.mesh_device_indices:
+        raise NotImplementedError("mesh_device_indices: a mapper over several cards is not ported "
+                                  "(ROADMAP.md, queue A item 13)")
+    if cfg.mapper.rays_strategy != "RANDOM":
+        raise NotImplementedError(f"rays_strategy={cfg.mapper.rays_strategy!r}: only RANDOM is ported "
+                                  "(ROADMAP.md, queue A item 5)")
+    dumps = cfg.debug.requested(("draw_rays", "draw_samples", "draw_loss_distribution"))
+    if dumps:
+        raise NotImplementedError(f"debug {dumps}: the mapper's debug probe dumps wait for "
+                                  "runtime/debug_dump.py (ROADMAP.md, queue A)")
+
+
+class OnlineMapper:
+    def __init__(self, cfg: OnlineMapperConfig, cube, device="cuda",
+                 step_draws: Optional[Callable[[KeyFrameWindow], StepDraws]] = None):
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.cube = cube.to(self.device)
+        self.state: MapperState = init_mapper_state(
+            torch.Generator(device=self.device).manual_seed(cfg.seed), cfg.mapper, self.device)
+        self.kf_manager = KeyFrameManager(cfg.keyframe_manager, seed=cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self._train_step = make_train_step(cfg.mapper, self.cube, self.device, self.generator)
+        self._step_draws = step_draws
+        # host mirror of state.global_step (reading the device's would sync)
+        self._host_step = 0
+        # optimization passes so far: picks the schedule's bucket
+        self._opt_count = 0
+        self.map_times: List[float] = []
+        self.window_timer = WindowTimer()
+        # callbacks called with (timestamp, tracked_pose, optimized_pose)
+        self.keyframe_update_callbacks: List[Callable] = []
+
+    # ------------------------------------------------------------------
+    def _phases_for_kf(self, opt_count: int) -> List[IterationPhase]:
+        """The iteration schedule of the opt_count-th optimization pass
+        (1-based), walking the schedule's num_keyframes buckets."""
+        remaining = opt_count
+        for phase in self.cfg.schedule:
+            if phase.num_keyframes == -1 or remaining <= phase.num_keyframes:
+                return phase.iteration_schedule
+            remaining -= phase.num_keyframes
+        return self.cfg.schedule[-1].iteration_schedule
+
+    def _pose_mask(self, window_kfs, latest_only: bool) -> torch.Tensor:
+        mask = np.zeros((self.cfg.mapper.max_keyframes,), np.float32)
+        if latest_only:
+            mask[window_kfs[-1].pose_index] = 1.0
+        else:
+            for kf in window_kfs:
+                if not kf.is_anchored:
+                    mask[kf.pose_index] = 1.0
+        return torch.from_numpy(mask).to(self.device)
+
+    def _set_pose(self, index: int, pose: np.ndarray) -> None:
+        poses = self.state.poses.clone()
+        poses[index] = se3.matrix_to_pose(torch.as_tensor(np.asarray(pose, np.float32), device=self.device))
+        self.state = self.state._replace(poses=poses)
+
+    # ------------------------------------------------------------------
+    def process_frame(self, scan: LidarScan, timestamp: float, tracked_pose: np.ndarray,
+                      gt_pose: Optional[np.ndarray] = None, sky: Optional[LidarScan] = None,
+                      use_gt_pose: bool = False) -> bool:
+        """The keyframe gate and the optimization. True if the map was
+        optimized (a new keyframe, or HYBRID's stationary re-optimization)."""
+        decision = self.kf_manager.decide(timestamp, tracked_pose)
+        if decision == "SKIP":
+            return False
+        t0 = time.time()
+
+        if decision == "NEW":
+            pose_init = (gt_pose if (use_gt_pose and gt_pose is not None)
+                         else self.kf_manager.rebase_pose(tracked_pose, self.state.poses.cpu().numpy()))
+            kf = KeyFrame(scan=scan, timestamp=timestamp, pose_index=len(self.kf_manager),
+                          tracked_pose=np.asarray(tracked_pose), gt_pose=gt_pose, sky=sky)
+            assert kf.pose_index < self.cfg.mapper.max_keyframes, "max_keyframes exceeded"
+            self.kf_manager.accept(kf)
+            self._set_pose(kf.pose_index, pose_init)
+
+        window_kfs = self.kf_manager.get_active_window()
+        window = stack_window(window_kfs, n_sky_pad=self.cfg.n_sky_pad, device=self.device)
+
+        self._opt_count += 1
+        n_iters = 0
+        n_acc = self.cfg.mapper.occ.n_iters_acc
+        self.window_timer.start()
+        loss_rows: List[tuple] = []  # (phase index, iteration, aux) device scalars
+        for phase_idx, phase in enumerate(self._phases_for_kf(self._opt_count)):
+            flags = TrainStepFlags(freeze_sigma=phase.freeze_sigma_mlp, freeze_rgb=phase.freeze_rgb_mlp,
+                                   freeze_poses=phase.freeze_poses, do_occ_update=False)
+            pose_mask = self._pose_mask(window_kfs, phase.latest_kf_only)
+            for it in range(phase.num_iterations):
+                occ = (self._host_step % n_acc) == n_acc - 1
+                self._host_step += 1
+                draws = self._step_draws(window) if self._step_draws is not None else None
+                self.state, aux = self._train_step(self.state, window, flags._replace(do_occ_update=occ),
+                                                   pose_mask, it, draws)
+                if self.cfg.log_losses:
+                    loss_rows.append((phase_idx, it, {c: aux[c] for c in self._LOSS_COLS if c in aux}))
+                n_iters += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if loss_rows:
+            self._write_loss_csvs(len(self.kf_manager), loss_rows)
+        self.window_timer.stop(n_iters)
+
+        poses_np = self.state.poses.cpu().numpy()
+        for cb in self.keyframe_update_callbacks:
+            for k in window_kfs:
+                cb(k.timestamp, k.tracked_pose, pose6_to_matrix(poses_np[k.pose_index]))
+
+        self._maybe_checkpoint()
+        self.map_times.append(time.time() - t0)
+        return True
+
+    # ------------------------------------------------------------------
+    _LOSS_COLS = ("loss", "depth_mse", "los_loss", "opacity_loss", "depth_eps", "js_mean")
+
+    def _write_loss_csvs(self, kf_index: int, rows):
+        """Per-keyframe, per-phase loss CSVs, read from the device once per
+        window."""
+        d = os.path.join(self.cfg.loss_log_dir or "losses", f"keyframe_{kf_index}")
+        os.makedirs(d, exist_ok=True)
+        by_phase = defaultdict(list)
+        for phase_idx, it, aux in rows:
+            by_phase[phase_idx].append([it] + [float(aux.get(c, float("nan"))) for c in self._LOSS_COLS])
+        for phase_idx, vals in by_phase.items():
+            np.savetxt(os.path.join(d, f"phase_{phase_idx}.csv"), np.asarray(vals), delimiter=",",
+                       header="iteration," + ",".join(self._LOSS_COLS), comments="")
+
+    def _ckpt_interval(self) -> Optional[int]:
+        return {"VERBOSE": 1, "STANDARD": 10}.get(self.cfg.log_level.upper())
+
+    def _maybe_checkpoint(self):
+        """Pose states every keyframe and a full checkpoint every
+        ``log_level`` interval; nothing when DISABLED."""
+        d = self.cfg.checkpoint_dir
+        interval = self._ckpt_interval()
+        if not d or interval is None:
+            return
+        self.write_pose_states(d)
+        if self._opt_count % interval == 0:
+            self.save_checkpoint(d)
+
+    def write_pose_states(self, directory: str):
+        """The keyframes' timestamps and tracked, optimized and ground-truth
+        poses as ``kf_poses.npz``."""
+        os.makedirs(directory, exist_ok=True)
+        kfs = self.kf_manager.keyframes
+        poses_np = self.state.poses.cpu().numpy()
+        empty = np.zeros((0, 4, 4))
+        np.savez(
+            os.path.join(directory, "kf_poses.npz"),
+            timestamps=np.asarray([k.timestamp for k in kfs]),
+            tracked=np.stack([k.tracked_pose for k in kfs]) if kfs else empty,
+            optimized=np.stack([pose6_to_matrix(poses_np[k.pose_index]) for k in kfs]) if kfs else empty,
+            has_gt=np.asarray([k.gt_pose is not None for k in kfs]),
+            gt=np.stack([k.gt_pose if k.gt_pose is not None else np.eye(4) for k in kfs]) if kfs else empty,
+        )
+
+    def save_checkpoint(self, directory: str) -> str:
+        """The full mapper state under ``directory/ckpt_<step>``."""
+        return save_checkpoint(directory, int(self._host_step), self.state)
+
+    def save_final(self, directory: str) -> str:
+        """Pose states and a full checkpoint, whatever the log level."""
+        self.write_pose_states(directory)
+        return self.save_checkpoint(directory)
+
+    def optimized_pose(self, kf: KeyFrame) -> np.ndarray:
+        return pose6_to_matrix(self.state.poses[kf.pose_index].cpu().numpy())

@@ -54,7 +54,9 @@ class MapperConfig(NamedTuple):
     rays_per_kf: int = 512
     sky_rays_per_kf: int = 64
     n_samples_train: int = 512
+    n_samples_test: int = 2048  # the render function's (a later slice)
     perturb: float = 1.0
+    samples_strategy: str = "OGM"  # OGM (UNIFORM: a later slice)
     rays_strategy: str = "RANDOM"  # RANDOM (MASK and FIXED: a later slice)
 
     lr_sigma: float = 0.01
@@ -284,6 +286,9 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
     Without ``draws`` the step draws from ``generator`` (one seeded with 0
     on ``device`` when None), kept as ``train_step.generator``."""
     dev = resolve_device(device)
+    if cfg.samples_strategy != "OGM":
+        raise NotImplementedError(
+            f"samples_strategy={cfg.samples_strategy!r}: only OGM is ported (ROADMAP.md, queue A item 2)")
     cube = cube.to(dev)
     # f32 products stay f32 (the JAX package's precision), never TF32
     torch.backends.cuda.matmul.allow_tf32 = False

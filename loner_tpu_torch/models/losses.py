@@ -29,6 +29,7 @@ class LossConfig(NamedTuple):
     depth_eps_decay_rate: float = 0.95
     depth_eps_decay_steps: float = 1.0
     depthloss_lambda: float = 0.005
+    cam_lambda: float = 1.0  # the camera loss's weight (the camera slice)
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from loner_tpu_torch.device import resolve_device
 class OccGridConfig(NamedTuple):
     voxel_size: int = 100  # V, grid is V^3
     lr: float = 1e-4
+    n_iters_acc: int = 10  # the online mapper's update cadence, in steps
     estimator: str = "stochastic"  # "stochastic" (one corner) | "exact" (8 corners)
 
 

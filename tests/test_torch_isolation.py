@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of loner_tpu_torch imports JAX or
 the JAX package, its entry points and public constructors default to the
-card and raise without one (no CPU fallback), and the encoders not yet
-ported say so."""
+card and raise without one (no CPU fallback), and the encoders and SLAM
+options not yet ported say so."""
 import ast
 import importlib
 import os
@@ -14,7 +14,9 @@ import torch
 
 import loner_tpu_torch
 from loner_tpu_torch.flagship import flagship
+from loner_tpu_torch.geometry.world_cube import compute_world_cube
 from loner_tpu_torch.mapping import keyframe as tkf
+from loner_tpu_torch.mapping import mapper as tmapper
 from loner_tpu_torch.mapping import optimizer as topt
 from loner_tpu_torch.models import mlp as tmlp
 from loner_tpu_torch.models import nerf as tnerf
@@ -22,6 +24,10 @@ from loner_tpu_torch.models import occupancy_grid as tocc
 from loner_tpu_torch.ops import cp_kernel as tcp
 from loner_tpu_torch.ops import fused_encoder as tfe
 from loner_tpu_torch.ops import triad_field as ttriad
+from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.slam import LonerSLAM, LoopClosureConfig, SlamConfig
+from loner_tpu_torch.tracking import icp as ticp
+from loner_tpu_torch.tracking.tracker import Tracker, TrackerConfig
 
 PKG = Path(loner_tpu_torch.__file__).resolve().parent
 MODULES = sorted(
@@ -72,6 +78,14 @@ def test_entry_points_default_to_the_card():
         topt.make_train_step(cfg, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship()
+    # the online SLAM loop's entry points
+    cube = compute_world_cube(None, (1.0, 40.0), traj_bounding_box=dict(x=[-5, 5], y=[-5, 5], z=[-1, 1]))
+    for make in (lambda: LonerSLAM(SlamConfig(), cube), lambda: Tracker(TrackerConfig()),
+                 lambda: tmapper.OnlineMapper(tmapper.OnlineMapperConfig(), cube),
+                 lambda: ticp.make_icp(ticp.IcpConfig()),
+                 lambda: ticp.icp_point_to_plane(torch.zeros((4, 3)), torch.zeros((4, 3)))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     # the public constructors too
     gen = torch.Generator()
     small = tnerf.NeRFConfig(triad=ttriad.TriadConfig(cp_resolutions=(4,), cp_features=2, hash_levels=1, hash_features=2))
@@ -89,8 +103,54 @@ def test_entry_points_default_to_the_card():
             make()
 
 
-@pytest.mark.parametrize("impl", ["cell", "packed", "exact"])
+def _slam(**changes):
+    """A small LonerSLAM on the CPU with ``changes`` applied to its config:
+    {"mapper.camera.enabled": True, ...}."""
+    cfg = SlamConfig(mapper=tmapper.OnlineMapperConfig(mapper=topt.MapperConfig(
+        nerf=tnerf.NeRFConfig(triad=ttriad.TriadConfig(cp_resolutions=(4,), cp_features=2)), max_keyframes=4,
+        occ=tocc.OccGridConfig(voxel_size=4))))
+    for path, value in changes.items():
+        *parents, leaf = path.split(".")
+        node = cfg
+        for p in parents:
+            node = getattr(node, p)
+        if hasattr(node, "_replace"):  # a named tuple: replace it in its parent
+            parent = cfg
+            for p in parents[:-1]:
+                parent = getattr(parent, p)
+            setattr(parent, parents[-1], node._replace(**{leaf: value}))
+        else:
+            setattr(node, leaf, value)
+    cube = compute_world_cube(None, (1.0, 40.0), traj_bounding_box=dict(x=[-5, 5], y=[-5, 5], z=[-1, 1]))
+    return LonerSLAM(cfg, cube, device="cpu")
+
+
+# option -> (changes to a small CPU LonerSLAM's config, the message's marker)
+UNPORTED_SLAM = {
+    "camera": ({"mapper.camera.enabled": True}, "item 9"),
+    "loop_closure": ({"loop_closure": LoopClosureConfig(enabled=True)}, "item 10"),
+    "device_split": ({"concurrent_device_split": True}, "item 13"),
+    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 13"),
+    "tracker_device_index": ({"tracker.device_index": 0}, "item 13"),
+    "rays_mask": ({"mapper.mapper.rays_strategy": "MASK"}, "item 5"),
+    "rays_fixed": ({"mapper.mapper.rays_strategy": "FIXED"}, "item 5"),
+    "samples_uniform": ({"mapper.mapper.samples_strategy": "UNIFORM"}, "item 2"),
+    "debug_icp_clouds": ({"mapper.debug": DebugFlags(global_enabled=True, draw_icp_clouds=True)}, "debug_dump"),
+    "debug_rays": ({"mapper.debug": DebugFlags(global_enabled=True, draw_rays=True)}, "debug_dump"),
+}
+
+
+@pytest.mark.parametrize("impl", ["cell", "packed", "exact", *UNPORTED_SLAM, "process_image"])
 def test_unported_paths_raise(impl):
+    if impl == "process_image":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            _slam().process_image(None, 0.0)
+        return
+    if impl in UNPORTED_SLAM:
+        changes, marker = UNPORTED_SLAM[impl]
+        with pytest.raises(NotImplementedError, match=marker):
+            _slam(**changes)
+        return
     cfg = tnerf.NeRFConfig(encoding_impl=impl)
     with pytest.raises(NotImplementedError, match="triad"):
         tnerf.init_nerf(torch.Generator(), cfg, device="cpu")

@@ -136,7 +136,7 @@ def jax_step_draws(key, cfg, window) -> dict:
 
 
 def torch_draws(draws: dict, device="cpu") -> topt.StepDraws:
-    return topt.StepDraws(**{k: torch.as_tensor(v).to(device) for k, v in draws.items()})
+    return topt.StepDraws(**{k: torch.as_tensor(np.array(v)).to(device) for k, v in draws.items()})
 
 
 def np_tree(tree):
@@ -204,3 +204,49 @@ def load_script(name: str):
             else:
                 os.environ["JAX_CACHE_DIR"] = saved_env
     return module
+
+
+def loop_scans(n_frames: int, n_channels: int = 16, n_azimuth: int = 256, pad_to: int = 3072, n_sky: int = 256):
+    """The synthetic loop of ``tests/test_slam_e2e.py`` (48 poses, radius 5 m,
+    period 9.6 s): ground-truth poses re-based to the first frame, timestamps,
+    and the first ``n_frames`` scans and sky scans (numpy LidarScans, whose
+    fields both packages' LidarScan take)."""
+    scene = jsyn.Scene.default()
+    poses, ts = jsyn.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
+    scans, skies = [], []
+    for T, t0 in zip(poses[:n_frames], ts[:n_frames]):
+        dirs, dists, stamps, hit = jsyn.simulate_scan(scene, T, t0, n_channels=n_channels, n_azimuth=n_azimuth,
+                                                     max_range=RAY_RANGE[1])
+        scans.append(j_make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=pad_to))
+        skies.append(j_sky_scan(dirs[~hit][:n_sky], RAY_RANGE[1] + 1.0, t0, pad_to=n_sky))
+    return poses, np.linalg.inv(poses[0])[None] @ poses, ts, scans, skies
+
+
+def slam_configs(pkg_mapper, pkg_kfm, pkg_slam, pkg_tracker, pkg_icp, mapper_cfg):
+    """One package's small SlamConfig (its modules as arguments, so that a
+    card test builds the port's alone): the budgets of
+    tests/test_slam_e2e.py::build_slam cut further (window 2, ``mapper_cfg``
+    of ``mapper_configs``, a 4 + 2 step schedule), the cfg/defaults.yaml ICP
+    schedule on 2048 points without motion compensation, keyframes 0.9 s apart
+    (the loop's timestamps, 0.2 s apart, fall an ulp under whole seconds)."""
+    schedule = [pkg_mapper.SchedulePhase(1, [pkg_mapper.IterationPhase(4, freeze_poses=True)]),
+                pkg_mapper.SchedulePhase(-1, [pkg_mapper.IterationPhase(2, freeze_poses=False)])]
+    return pkg_slam.SlamConfig(
+        tracker=pkg_tracker.TrackerConfig(icp=pkg_icp.IcpConfig(n_buckets=1 << 12), target_points=2048,
+                                          motion_compensation=False),
+        mapper=pkg_mapper.OnlineMapperConfig(
+            mapper=mapper_cfg._replace(max_keyframes=8), schedule=schedule, n_sky_pad=256,
+            keyframe_manager=pkg_kfm.KeyFrameManagerConfig(time_diff_seconds=0.9, window_size=2)))
+
+
+def port_slam_config():
+    """(the port's small SlamConfig, its world cube) on the synthetic loop."""
+    from loner_tpu_torch import slam
+    from loner_tpu_torch.geometry.world_cube import compute_world_cube
+    from loner_tpu_torch.mapping import keyframe_manager, mapper
+    from loner_tpu_torch.tracking import icp, tracker
+
+    poses, _ = jsyn.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
+    cube = compute_world_cube(poses, ray_range=RAY_RANGE, rebase_to_first_pose=True)
+    _, mcfg = mapper_configs(cube.scale_factor)
+    return slam_configs(mapper, keyframe_manager, slam, tracker, icp, mcfg), cube
