@@ -44,6 +44,20 @@ In order:
       compensation on the card against the CPU, and a profile of five ICP
       calls (chiprun_out/icp_profile.txt); a threaded run of 12 frames
       checked for the output files (into chiprun_out/slam*/);
+  3d. the users' drivers, each with every launch count set to 0 just before
+      and read just after (B1-B3 as their steps and renders imply, B4/B5
+      never): ``python -m loner_tpu_torch.run_slam`` in-process over a
+      36-pose synthetic sequence written to disk at 32 x 512 returns, with
+      cfg/defaults.yaml as its baseline (ATE under 0.35 m, every output file
+      present); the offline FDT optimization (``optimize_implicit_map``) of
+      an 80-tree forest at window 16, 512 + 64 rays, 512 samples, MASK rays
+      and the exact occupancy update, at most 8 epochs (final held-out L1
+      under 1.15 m; set-up, training and eval times apart; a window-16
+      step's time split and profile in chiprun_out/offline_step_profile.txt;
+      B1 and B3 held against their plain versions on the inputs they met
+      there: the window-16 step's and an eval render's);
+      and ``python -m loner_tpu_torch.bench`` (its JSON line printed on its
+      own; joint at most 1.05x frozen);
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -61,6 +75,7 @@ result. It needs no network and leaves no process behind.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -163,6 +178,81 @@ def _profile(run_once, n_steps: int, wall_ms: float, path: Path, unit: str = "st
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms, "operators": calls}
 
 
+PATH_KERNELS = ("cp_fwd", "cp_bwd", "pdf_sample")  # B1-B3: the hash-off field and the sampler
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper under its module name: keeps a copy of
+    the arguments of the wrapper's first call at each set of tensor shapes,
+    in ``into``, then calls the wrapper. ``launches`` is the wrapper's own
+    count (the wrapper counts through its module name, which now names the
+    recorder)."""
+
+    def __init__(self, fn, into: dict):
+        self.fn, self.into = fn, into
+
+    def __call__(self, *args):
+        shapes = tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
+        if shapes not in self.into:
+            self.into[shapes] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return self.fn(*args)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+@contextlib.contextmanager
+def _first_inputs(module, name: str, into: dict):
+    """Route calls of ``module.name`` through a :class:`_Recorder` into
+    ``into`` while the block runs."""
+    fn = getattr(module, name)
+    setattr(module, name, _Recorder(fn, into))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _check_met_inputs(name, cp_in: dict, pdf_in: dict) -> list:
+    """B1 (``cp_fwd``) and B3 (``pdf_sample``) on the inputs a phase gave
+    them, against their plain versions with the bounds of the flagship
+    checks: B1 1e-5 of the features' scale, B3 1e-6."""
+    from loner_tpu_torch.ops import cp_kernel, pdf_kernel
+
+    rows = []
+    for lines, pts, res, nf in cp_in.values():
+        ref = cp_kernel.cp_encode_ref(lines, pts, res)
+        err = float((cp_kernel.cp_fwd(lines, pts, res, nf) - ref).abs().max())
+        rows.append({"kernel": "cp_fwd", "points": pts.shape[1], "max_abs_err": err,
+                     "ok": err <= 1e-5 * max(1.0, float(ref.abs().max()))})
+        del ref
+    for bins, cdf, u, eps in pdf_in.values():
+        err = float((pdf_kernel.pdf_sample(bins, cdf, u, eps) - pdf_kernel.pdf_sample_ref(bins, cdf, u, eps)).abs().max())
+        rows.append({"kernel": "pdf_sample", "rays": u.shape[0], "bins": bins.shape[1], "draws": u.shape[1],
+                     "max_abs_err": err, "ok": err <= 1e-6})
+    torch.cuda.empty_cache()
+    print(f"{name}: kernels on the inputs met there, against their plain versions: {rows}", flush=True)
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"{name}: a kernel disagrees with its plain version: {rows}")
+    return rows
+
+
+def _check_launches(name, wrappers, expected: dict):
+    """Every wrapper launched as ``expected`` says (one it does not name:
+    never); returns the launches."""
+    launches = {w.__name__: w.launches for w in wrappers}
+    expected = {w.__name__: expected.get(w.__name__, 0) for w in wrappers}
+    print(f"{name}: launches {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    return launches
+
+
 def _drive(name, opt, cfg, cube, state, window, plan, wrappers, expected):
     """Run ``plan`` [(kind, flags)] from ``state`` with every wrapper's
     launch count set to 0 just before and read just after; check finite
@@ -183,16 +273,13 @@ def _drive(name, opt, cfg, cube, state, window, plan, wrappers, expected):
         torch.cuda.synchronize()
         times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
         losses.append(float(aux["loss"]))
-    launches = {w.__name__: w.launches for w in wrappers}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"{name}: {len(plan)} steps, losses {['%.4f' % x for x in losses]}")
-    print(f"{name}: launches {launches} (expected {expected})")
+    launches = _check_launches(name, wrappers, expected)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if int(state.skipped_steps) != 0 or int(state.global_step) != len(plan):
         raise AssertionError(f"{name}: steps skipped: {int(state.skipped_steps)} of {int(state.global_step)}")
-    if launches != expected:
-        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     # the first step of each kind pays one-time set-up (cuBLAS handles,
     # allocator growth): it is kept in the JSON file but not in the means
     step_ms = {k: sum(v[1:]) / len(v[1:]) if len(v) > 1 else v[0] for k, v in times.items()}
@@ -512,10 +599,8 @@ def _run_probes(wrappers):
         t0 = time.perf_counter()
         result = module.main([])
         torch.cuda.synchronize()
-        launches = {w.__name__: w.launches for w in wrappers}
-        print(f"probe {name}: {time.perf_counter() - t0:.1f} s, launches {launches}", flush=True)
-        if launches != expected:
-            raise AssertionError(f"probe {name}: launches {launches}, expected {expected}")
+        print(f"probe {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        launches = _check_launches(f"probe {name}", wrappers, expected)
         for leg, values in result["legs"].items():
             for key, v in values.items():
                 bad = ((not isinstance(v, bool) and not math.isfinite(v))
@@ -582,14 +667,12 @@ def _online_slam(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0
     t0 = time.perf_counter()
     slam, est = run(len(poses), True, out_dir / "slam")
     wall_s = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
     mapper = slam.mapper
     kfs = mapper.kf_manager.keyframes
     # the schedule's steps for each optimization pass (one per keyframe)
     expected_steps = sum(p.num_iterations for i in range(1, len(kfs) + 1) for p in mapper._phases_for_kf(i))
     # the hash-off train step: B1-B3 once per step, the hash kernels never
-    expected = {w.__name__: expected_steps if w.__name__ in ("cp_fwd", "cp_bwd", "pdf_sample") else 0
-                for w in wrappers}
+    launches = _check_launches("online SLAM", wrappers, {k: expected_steps for k in PATH_KERNELS})
     track_ms = np.asarray(slam.tracker.track_times) * 1e3
     windows = [{"ms": dt * 1e3, "iterations": n, "its_per_s": n / dt} for dt, n in mapper.window_timer.rows]
     ate = float(np.sqrt(np.mean(np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1) ** 2)))
@@ -612,14 +695,14 @@ def _online_slam(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0
     print("online SLAM windows (ms, iterations, its/s; reference budget 16.7 its/s): " + "; ".join(
         f"{w['ms']:.1f}, {w['iterations']}, {w['its_per_s']:.2f}" for w in windows))
     print(f"online SLAM: tracking ATE {ate:.4f} m, keyframe ATE {kf_ate:.4f} m (tracked at the keyframes "
-          f"{kf_tracked_ate:.4f} m); launches {launches} (expected {expected})")
+          f"{kf_tracked_ate:.4f} m)")
     if not (np.all(np.isfinite(est)) and np.all(np.isfinite(kf_opt))):
         raise AssertionError("online SLAM: a non-finite pose")
     if not ate < 0.3:
         raise AssertionError(f"online SLAM: tracking ATE {ate:.4f} m, at or over the 0.3 m gate")
-    if launches != expected or mapper._host_step != expected_steps or res["skipped_steps"]:
-        raise AssertionError(f"online SLAM: launches {launches} over {mapper._host_step} steps "
-                             f"({res['skipped_steps']} skipped), expected {expected}")
+    if mapper._host_step != expected_steps or res["skipped_steps"]:
+        raise AssertionError(f"online SLAM: {mapper._host_step} steps ({res['skipped_steps']} skipped), "
+                             f"expected {expected_steps}")
     for name in ("tracking_only", "estimated_trajectory", "keyframe_trajectory", "online_estimates"):
         if not np.all(np.isfinite(np.loadtxt(out_dir / "slam" / "trajectory" / f"{name}.txt"))):
             raise AssertionError(f"online SLAM: non-finite {name}.txt")
@@ -674,6 +757,195 @@ def _online_slam(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0
     res["threaded"] = {"steps": tslam.mapper._host_step, "contract": contract}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return res
+
+
+def _cli_drive(root: Path, out_dir: Path, wrappers) -> dict:
+    """``python -m loner_tpu_torch.run_slam``, called in-process as a user
+    runs it: a 36-pose synthetic loop of period 7.2 s at 32 x 512 returns
+    written to disk, cfg/defaults.yaml as the baseline of a sequence file
+    (ray range (1, 40), motion compensation off, scan and sky budgets
+    16384 / 4096). Fails unless ate.yaml's rmse is under 0.35 m, every
+    output file is there, and B1-B3 launched once per train step."""
+    import numpy as np
+    import yaml
+
+    from loner_tpu_torch import run_slam
+    from loner_tpu_torch.data.dataset import write_synthetic_dataset
+
+    seq, run_dir = out_dir / "cli_seq", out_dir / "cli_run"
+    t0 = time.perf_counter()
+    write_synthetic_dataset(str(seq), n_poses=36, period=7.2, n_channels=32, n_azimuth=512)
+    seq_yaml = out_dir / "cli_sequence.yaml"
+    seq_yaml.write_text(yaml.safe_dump({
+        "baseline": str(root / "cfg" / "defaults.yaml"),
+        "changes": {"data": {"ray_range": [1, 40], "scan_points_budget": 16384, "sky_points_budget": 4096},
+                    "tracker": {"motion_compensation": {"enabled": False}}},
+    }))
+    setup_s = time.perf_counter() - t0
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    ates = run_slam.main([str(seq_yaml), "--dataset", str(seq), "--out", str(run_dir)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    timing = np.atleast_2d(np.loadtxt(run_dir / "timing.csv", delimiter=",", skiprows=1))
+    steps = int(timing[:, 1].sum())
+    launches = _check_launches("CLI drive", wrappers, {k: steps for k in PATH_KERNELS})
+    ate = yaml.safe_load((run_dir / "ate.yaml").read_text())
+    contract = ["full_config.yaml", "full_config.pkl", "world_cube.yaml", "runtime.txt", "ate.yaml", "timing.csv",
+                "track_times.csv", "map_times.csv", "checkpoints/kf_poses.npz", f"checkpoints/ckpt_{steps}/state.pt"]
+    contract += [f"trajectory/{n}.txt" for n in ("tracking_only", "estimated_trajectory", "keyframe_trajectory",
+                                                  "online_estimates", "groundtruth")]
+    missing = [f for f in contract if not (run_dir / f).exists()]
+    track_ms = np.loadtxt(run_dir / "track_times.csv") * 1e3
+    res = {"sequence_write_s": setup_s, "wall_s": wall_s, "ate": ate, "train_steps": steps, "launches": launches,
+           "windows_its_per_s": [float(x) for x in timing[:, 2]], "track_ms_median": float(np.median(track_ms)),
+           "missing": missing}
+    print(f"CLI drive (python -m loner_tpu_torch.run_slam): sequence written in {setup_s:.1f} s, run {wall_s:.1f} s; "
+          f"ATE rmse {ate['rmse']:.4f} m over {ate['n']} poses (gate 0.35); {steps} train steps, windows "
+          f"{res['windows_its_per_s']} its/s, tracking median {res['track_ms_median']:.2f} ms; missing {missing}",
+          flush=True)
+    if missing or ates != [ate["rmse"]]:
+        raise AssertionError(f"CLI drive: output files missing {missing}, ATEs {ates}")
+    if not ate["rmse"] < 0.35:
+        raise AssertionError(f"CLI drive: ATE {ate['rmse']:.4f} m, at or over the 0.35 m gate")
+    return res
+
+
+def _offline_leg(out_dir: Path, wrappers, dev) -> dict:
+    """The offline FDT map optimization (``optimize_implicit_map``) at the
+    triad-nohash leg of scripts/exp_encoder_flagship.py: an 80-tree forest,
+    40 keyframes on two circles, ray range (2.5, 45), window 16, 512 + 64
+    rays, 512 samples in two point chunks, MASK trunk-band rays,
+    n_samples_test 1024, the exact occupancy update, at most 8 epochs with
+    the held-out L1 early stop at 1.05 m. Fails on a non-finite L1 or a
+    final L1 of 1.15 m or more, or launches other than the steps and eval
+    renders imply: per train step B1 and B2 once per point chunk, B3 once;
+    per eval render (6 held-out scans an epoch) B1 once per field chunk
+    (NeRFConfig.point_chunks), B3 once. B1 and B3 are then held against
+    their plain versions on the first inputs they met at each shape, which
+    must include the window-16 step's and an eval render's."""
+    import numpy as np
+
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
+    from loner_tpu_torch.geometry.world_cube import compute_world_cube
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.mapping.keyframe import KeyFrame, stack_window
+    from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
+    from loner_tpu_torch.models import sampling
+    from loner_tpu_torch.ops import cp_kernel
+
+    t0 = time.perf_counter()
+    n_kfs, extent = 40, 40.0
+    scene = synthetic.Scene.forest(seed=1, extent=extent, n_trees=80)
+    poses_a, ts_a = synthetic.circular_trajectory(n_poses=n_kfs // 2, radius=extent * 0.45, z=1.8, period=n_kfs / 2.0)
+    poses_b, ts_b = synthetic.circular_trajectory(n_poses=n_kfs - n_kfs // 2, radius=extent * 0.22, z=1.8,
+                                                  period=n_kfs / 2.0)
+    poses = np.concatenate([poses_a, poses_b])
+    ts = np.concatenate([ts_a, ts_b + ts_a[-1] + 1.0])
+    ray_range = (2.5, 45.0)
+    cube = compute_world_cube(poses, ray_range=ray_range, rebase_to_first_pose=False)
+    kfs = []
+    rng = np.random.default_rng(0)
+    for i, (T, t) in enumerate(zip(poses, ts)):
+        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t, n_channels=32, n_azimuth=512,
+                                                           max_range=ray_range[1], rng=rng, noise_std=0.01)
+        kfs.append(KeyFrame(scan=make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384), timestamp=t,
+                            pose_index=i, tracked_pose=T, gt_pose=T,
+                            sky=sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t, pad_to=1024)).compute_band_indices())
+    setup_s = time.perf_counter() - t0
+    base = opt.MapperConfig()
+    cfg = base._replace(
+        nerf=base.nerf._replace(num_colors=1), ray_range=ray_range, world_scale=cube.scale_factor, window_size=16,
+        max_keyframes=64, rays_per_kf=512, sky_rays_per_kf=64, n_samples_train=512, n_samples_test=1024,
+        rays_strategy="MASK", train_point_chunks=2)
+    offline = OfflineConfig(window_size=16, iterations_per_window=32, max_epochs=8, n_eval_scans=6,
+                            eval_rays_per_scan=1024)
+    print(f"offline FDT leg: forest of 80 trees, {n_kfs} scans ray-cast on the host in {setup_s:.1f} s", flush=True)
+
+    cp_in, pdf_in = {}, {}
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _first_inputs(cp_kernel, "cp_fwd", cp_in), _first_inputs(sampling, "pdf_sample", pdf_in):
+        result = optimize_implicit_map(cfg, cube, kfs, offline, device=dev,
+                                       log_fn=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    renders = offline.n_eval_scans * result.epochs_run
+    chunks = cfg.nerf.point_chunks
+    launches = _check_launches("offline FDT leg", wrappers, {
+        "cp_fwd": cfg.train_point_chunks * result.iterations + chunks * renders,
+        "cp_bwd": cfg.train_point_chunks * result.iterations,
+        "pdf_sample": result.iterations + renders})
+    train_s = result.wall_time_s - result.eval_time_s
+    # B1 and B3 at this leg's shapes: B3 at the window-16 step's and the
+    # eval render's, B1 at the step's point chunk and the render's
+    rays, eval_rays = cfg.window_size * (cfg.rays_per_kf + cfg.sky_rays_per_kf), offline.eval_rays_per_scan
+    met = _check_met_inputs("offline FDT leg", cp_in, pdf_in)
+    want = {("cp_fwd", rays * cfg.n_samples_train // cfg.train_point_chunks),
+            ("cp_fwd", eval_rays * cfg.n_samples_test // chunks),
+            ("pdf_sample", rays, cfg.n_samples_train // 2), ("pdf_sample", eval_rays, cfg.n_samples_test // 2)}
+    seen = {("cp_fwd", r["points"]) if r["kernel"] == "cp_fwd" else ("pdf_sample", r["rays"], r["draws"]) for r in met}
+    if not want <= seen:
+        raise AssertionError(f"offline FDT leg: kernel inputs met {sorted(seen)}, expected at least {sorted(want)}")
+    del cp_in, pdf_in
+
+    # where a window-16 step's time goes: synchronized plain and
+    # occupancy-update steps on one window of the final state, then a profile
+    step = opt.make_train_step(cfg._replace(occ=cfg.occ._replace(estimator="exact")), cube, dev)
+    window = stack_window(kfs[:16], n_sky_pad=1024, device=dev)
+    flags = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=True, do_occ_update=False)
+    mask = torch.zeros(cfg.max_keyframes, device=dev)
+    times = {}
+    state = result.state
+    for kind, occ in [("step", False)] * 4 + [("occ_step", True)] * 3:
+        t = time.perf_counter()
+        state, _ = step(state, window, flags._replace(do_occ_update=occ), mask, 0)
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append((time.perf_counter() - t) * 1e3)
+    step_ms = {k: sum(v[1:]) / len(v[1:]) for k, v in times.items()}
+    prof = _profile(_steps(step, state, window, flags, mask), 3, step_ms["step"], out_dir / "offline_step_profile.txt")
+    res = {"l1_history_m": result.l1_history, "epochs": result.epochs_run, "iterations": result.iterations,
+           "setup_s": setup_s, "wall_s": result.wall_time_s, "train_s": train_s, "eval_s": result.eval_time_s,
+           "step_ms": step_ms, "step_profile": prof, "peak_mem_gib": peak_gib, "launches": launches,
+           "kernels_on_met_inputs": met,
+           "eval_renders": renders, "gate_m": 1.05, "jax_side_m": 1.002}
+    print(f"offline FDT leg: L1 history {[round(x, 4) for x in result.l1_history]} m over {result.epochs_run} epochs, "
+          f"{result.iterations} iterations; set-up {setup_s:.1f} s, training {train_s:.1f} s, eval "
+          f"{result.eval_time_s:.1f} s ({renders} renders); window-16 step {step_ms['step']:.2f} ms, with the exact "
+          f"occupancy update {step_ms['occ_step']:.2f} ms (host clock, synchronized), device busy "
+          f"{prof['busy_ms']:.3f} ms a step; peak memory {peak_gib:.2f} GiB. Final L1 "
+          f"{result.l1_history[-1]:.4f} m against the 1.05 m gate and the JAX side's 1.002 m "
+          f"(ENCODER_EXP_r05.json, triad_nohash; a quality number)", flush=True)
+    if not all(math.isfinite(x) for x in result.l1_history) or not result.l1_history[-1] < 1.15:
+        raise AssertionError(f"offline FDT leg: L1 history {result.l1_history}, final at or over 1.15 m")
+    if int(result.state.skipped_steps):
+        raise AssertionError(f"offline FDT leg: {int(result.state.skipped_steps)} steps skipped")
+    del result, state, step, window, kfs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _bench(wrappers) -> dict:
+    """``python -m loner_tpu_torch.bench`` in-process at its defaults (the
+    flagship): its JSON line goes out on its own line; fails unless both
+    rates are finite, joint is at most 1.05x frozen after the re-measure,
+    and B1-B3 launched once per train step it ran."""
+    from loner_tpu_torch import bench
+
+    for w in wrappers:
+        w.launches = 0
+    res = bench.main([])
+    torch.cuda.synchronize()
+    res["launches"] = _check_launches("bench", wrappers, {k: res["train_steps"] for k in PATH_KERNELS})
+    joint, frozen = res["joint_its_per_s"], res["frozen_its_per_s"]
+    if not (math.isfinite(joint) and math.isfinite(frozen) and joint <= frozen * 1.05):
+        raise AssertionError(f"bench: joint {joint} it/s, frozen {frozen} it/s")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -920,6 +1192,15 @@ def main() -> None:
     for r in report[:3]:
         r["slam_launches"] = slam["launches"][r["name"]]
 
+    # ---- the users' drivers: run_slam over an on-disk sequence, the offline
+    # FDT optimization, and the port of bench.py ----------------------------
+    cli = _cli_drive(Path(__file__).resolve().parent, out_dir, wrappers)
+    offline = _offline_leg(out_dir, wrappers, dev)
+    bench_res = _bench(wrappers)
+    for r in report[:3]:
+        r.update(cli_launches=cli["launches"][r["name"]], offline_launches=offline["launches"][r["name"]],
+                 bench_launches=bench_res["launches"][r["name"]])
+
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
     # bf16 MLP an operand on a rounding boundary can also round one bf16 ulp
@@ -945,7 +1226,8 @@ def main() -> None:
         reduced[k] = _card_vs_cpu(opt, flagship, hc, dev, joint, 1e-4, f"{k}, float32 MLP, {hc.loss.loss_selection}",
                                   whole_step_gated=k != "fused", hash_scale=1e3)
 
-    summary = {"card": smi, "paths": paths, "online_slam": slam, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+    summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
+               "bench": bench_res, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from loner_tpu_torch.device import resolve_device
+
 
 class WorldCube(NamedTuple):
     scale_factor: float
@@ -22,6 +24,18 @@ class WorldCube(NamedTuple):
 
     def to(self, device) -> "WorldCube":
         return self._replace(shift=self.shift.to(device))
+
+    def as_dict(self) -> dict:
+        """Python floats only, so that ``yaml.safe_dump`` takes it (the
+        run directory's ``world_cube.yaml``)."""
+        return {"scale_factor": float(self.scale_factor), "shift": self.shift.cpu().tolist()}
+
+    @staticmethod
+    def from_dict(d: dict, device="cuda") -> "WorldCube":
+        """The cube of :meth:`as_dict`, rounded to float32 as the JAX
+        package's ``from_dict`` rounds it, its shift on ``device``."""
+        shift = torch.as_tensor(np.asarray(d["shift"], np.float32)).to(resolve_device(device))
+        return WorldCube(float(np.float32(d["scale_factor"])), shift)
 
 
 def _lidar_view_corners(max_depth: float) -> np.ndarray:

@@ -12,11 +12,14 @@ window ends.
 Random draws come from the mapper's ``torch.Generator`` (seeded with
 ``seed + 1``, as the JAX mapper's key), or from ``step_draws`` when given:
 a callable of the window returning each step's :class:`StepDraws`, so that a
-caller can replay another source's draws.
+caller can replay another source's draws. Under the FIXED ray strategy a
+phase runs one epoch over the padded scan, ``max(1, P // rays_per_kf)``
+steps, all slicing one permutation drawn at the phase's start; as the JAX
+mapper holds its step key through the phase, the occupancy-corner
+uniforms are drawn there once too, and the other draws afresh each step.
 
 Not ported, and raising ``NotImplementedError``: the online camera phase
-(queue A item 9), a mapper mesh (item 13), the debug probe dumps, and the
-MASK and FIXED ray strategies (item 5).
+(queue A item 2), a mapper mesh (item 7) and the debug probe dumps (item 4).
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ from loner_tpu_torch.mapping.optimizer import (
     MapperState,
     StepDraws,
     TrainStepFlags,
+    draw_occ_uniforms,
+    draw_permutation,
+    draw_step,
     init_mapper_state,
     make_train_step,
 )
@@ -77,7 +83,7 @@ def default_keyframe_schedule(skip_pose_refinement: bool = True) -> List[Schedul
 
 @dataclass
 class OnlineCameraConfig:
-    """The online camera phase's configuration (the phase is queue A item 9;
+    """The online camera phase's configuration (the phase is queue A item 2;
     ``enabled`` raises)."""
 
     enabled: bool = False
@@ -101,24 +107,21 @@ class OnlineMapperConfig:
     checkpoint_dir: Optional[str] = None
     log_losses: bool = False  # per-keyframe, per-phase loss CSVs
     loss_log_dir: Optional[str] = None
-    mesh_device_indices: Optional[List[int]] = None  # queue A item 13
+    mesh_device_indices: Optional[List[int]] = None  # queue A item 7
     camera: OnlineCameraConfig = field(default_factory=OnlineCameraConfig)
     debug: DebugFlags = field(default_factory=DebugFlags)
 
 
 def _check_ported(cfg: OnlineMapperConfig) -> None:
     if cfg.camera.enabled:
-        raise NotImplementedError("the online camera phase is not ported (ROADMAP.md, queue A item 9)")
+        raise NotImplementedError("the online camera phase is not ported (ROADMAP.md, queue A item 2)")
     if cfg.mesh_device_indices:
         raise NotImplementedError("mesh_device_indices: a mapper over several cards is not ported "
-                                  "(ROADMAP.md, queue A item 13)")
-    if cfg.mapper.rays_strategy != "RANDOM":
-        raise NotImplementedError(f"rays_strategy={cfg.mapper.rays_strategy!r}: only RANDOM is ported "
-                                  "(ROADMAP.md, queue A item 5)")
+                                  "(ROADMAP.md, queue A item 7)")
     dumps = cfg.debug.requested(("draw_rays", "draw_samples", "draw_loss_distribution"))
     if dumps:
         raise NotImplementedError(f"debug {dumps}: the mapper's debug probe dumps wait for "
-                                  "runtime/debug_dump.py (ROADMAP.md, queue A)")
+                                  "runtime/debug_dump.py (ROADMAP.md, queue A item 4)")
 
 
 class OnlineMapper:
@@ -195,16 +198,25 @@ class OnlineMapper:
         self._opt_count += 1
         n_iters = 0
         n_acc = self.cfg.mapper.occ.n_iters_acc
+        fixed = self.cfg.mapper.rays_strategy == "FIXED"
         self.window_timer.start()
         loss_rows: List[tuple] = []  # (phase index, iteration, aux) device scalars
         for phase_idx, phase in enumerate(self._phases_for_kf(self._opt_count)):
             flags = TrainStepFlags(freeze_sigma=phase.freeze_sigma_mlp, freeze_rgb=phase.freeze_rgb_mlp,
                                    freeze_poses=phase.freeze_poses, do_occ_update=False)
             pose_mask = self._pose_mask(window_kfs, phase.latest_kf_only)
-            for it in range(phase.num_iterations):
+            n_phase_iters, held = phase.num_iterations, {}
+            if fixed:
+                # one epoch over the padded scan, slicing one permutation
+                n_phase_iters = max(1, window.dirs.shape[1] // self.cfg.mapper.rays_per_kf)
+                if self._step_draws is None:
+                    held = dict(perm=draw_permutation(window, self.generator, self.device),
+                                u_occ=draw_occ_uniforms(self.cfg.mapper, self.generator, self.device))
+            for it in range(n_phase_iters):
                 occ = (self._host_step % n_acc) == n_acc - 1
                 self._host_step += 1
-                draws = self._step_draws(window) if self._step_draws is not None else None
+                draws = (self._step_draws(window) if self._step_draws is not None
+                         else draw_step(self.cfg.mapper, window, self.generator, self.device, **held))
                 self.state, aux = self._train_step(self.state, window, flags._replace(do_occ_update=occ),
                                                    pose_mask, it, draws)
                 if self.cfg.log_losses:

@@ -20,10 +20,15 @@ Adam, not AdamW). A non-finite loss or gradient, or a frozen group, leaves
 that group's parameters, moments and count as they were. Everything is
 selected on the device (``torch.where``), so a step makes no host sync.
 
-Random draws (ray and sky indices, the stratified, pdf and occupancy-corner
-uniforms, the hash encoder's two key words) come in a :class:`StepDraws`;
-without one the step draws them from its ``torch.Generator``. The RANDOM ray
-strategy is ported; MASK and FIXED raise until a later slice.
+Random draws (ray and sky indices or FIXED's permutation, the stratified,
+pdf and occupancy-corner uniforms, the hash encoder's two key words) come in
+a :class:`StepDraws`; without one the step draws them from its
+``torch.Generator``. Rays are drawn RANDOM (uniformly per step), MASK (a
+share from each keyframe's trunk band) or FIXED (consecutive slices of one
+permutation per window); samples OGM (occupancy-guided) or UNIFORM.
+
+``make_render_fn`` is the evaluation render: ``n_samples_test`` samples per
+ray, no jitter, no gradient.
 """
 from __future__ import annotations
 
@@ -54,10 +59,18 @@ class MapperConfig(NamedTuple):
     rays_per_kf: int = 512
     sky_rays_per_kf: int = 64
     n_samples_train: int = 512
-    n_samples_test: int = 2048  # the render function's (a later slice)
+    n_samples_test: int = 2048  # make_render_fn's samples per ray
     perturb: float = 1.0
-    samples_strategy: str = "OGM"  # OGM (UNIFORM: a later slice)
-    rays_strategy: str = "RANDOM"  # RANDOM (MASK and FIXED: a later slice)
+    samples_strategy: str = "OGM"  # OGM | UNIFORM
+    # RANDOM: a uniform draw per step; MASK: the first mask_band_fraction of
+    # each keyframe's draws index its trunk band (FDT); FIXED: one
+    # permutation per window, sliced in order by the iteration (the caller
+    # holds the permutation across the window, as OnlineMapper does)
+    rays_strategy: str = "RANDOM"
+    mask_band_fraction: float = 0.75
+    # sequential point chunks of the train step's field pass (1 = one pass);
+    # the eval render keeps NeRFConfig.point_chunks
+    train_point_chunks: int = 1
 
     lr_sigma: float = 0.01
     lr_rgb: float = 0.01
@@ -102,12 +115,13 @@ class TrainStepFlags(NamedTuple):
 class StepDraws(NamedTuple):
     """Every random number one train step uses."""
 
-    ray_idx: torch.Tensor  # (W, R) int64 lidar point indices per keyframe
+    ray_idx: Optional[torch.Tensor]  # (W, R) int64 lidar point indices per keyframe (None under FIXED)
     sky_idx: torch.Tensor  # (W, Rs) int64 sky indices per keyframe
-    u_strat: torch.Tensor  # (N, S/2) stratified jitter
-    u_pdf: torch.Tensor  # (N, S/2) inverse-CDF uniforms
+    u_strat: torch.Tensor  # (N, S/2) stratified jitter (OGM); (N, S) under UNIFORM
+    u_pdf: Optional[torch.Tensor]  # (N, S/2) inverse-CDF uniforms (OGM)
     u_occ: torch.Tensor  # (N, S) occupancy-corner uniforms
     enc_key: torch.Tensor  # (2,) int64 in [0, 2^32): the encoder's two key words
+    perm: Optional[torch.Tensor] = None  # (W, P) int64: FIXED's per-keyframe permutation
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +130,10 @@ class StepDraws(NamedTuple):
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the tensor leaves of dicts, lists and named tuples."""
+    """``fn`` over the tensor leaves of dicts, lists and named tuples; None
+    is an empty subtree (an absent draw of :class:`StepDraws`)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
@@ -126,6 +143,8 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in tree for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -220,36 +239,77 @@ def init_mapper_state(generator: Optional[torch.Generator], cfg: MapperConfig, d
     )
 
 
-def draw_step(cfg: MapperConfig, window, generator: torch.Generator, device) -> StepDraws:
-    """Draw one step's random numbers from ``generator`` on ``device``."""
+_RAYS_STRATEGIES = ("RANDOM", "MASK", "FIXED")
+_SAMPLES_STRATEGIES = ("OGM", "UNIFORM")
+
+
+def draw_step(cfg: MapperConfig, window, generator: torch.Generator, device,
+              perm: Optional[torch.Tensor] = None, u_occ: Optional[torch.Tensor] = None) -> StepDraws:
+    """Draw one step's random numbers from ``generator`` on ``device``.
+    Under FIXED the step slices ``perm`` (W, P), drawn here when None;
+    ``u_occ``, when given, is used in place of a fresh draw."""
     w = window.window_size
     p = window.dirs.shape[1]
     s = window.sky_dirs.shape[1]
     n = cfg.rays_per_window
     half = cfg.n_samples_train // 2
+    uniform = cfg.samples_strategy == "UNIFORM"
 
     def rand(*shape):
         return torch.rand(shape, generator=generator, device=device)
 
+    ray_idx = None
+    if cfg.rays_strategy == "FIXED":
+        if perm is None:
+            perm = draw_permutation(window, generator, device)
+    else:
+        ray_idx = torch.randint(0, p, (w, cfg.rays_per_kf), generator=generator, device=device)
     return StepDraws(
-        ray_idx=torch.randint(0, p, (w, cfg.rays_per_kf), generator=generator, device=device),
+        ray_idx=ray_idx,
         sky_idx=torch.randint(0, s, (w, cfg.sky_rays_per_kf), generator=generator, device=device),
-        u_strat=rand(n, half),
-        u_pdf=rand(n, half),
-        u_occ=rand(n, cfg.n_samples_train),
+        u_strat=rand(n, cfg.n_samples_train if uniform else half),
+        u_pdf=None if uniform else rand(n, half),
+        u_occ=draw_occ_uniforms(cfg, generator, device) if u_occ is None else u_occ,
         enc_key=torch.randint(0, 2**32, (2,), generator=generator, device=device),
+        perm=perm,
     )
+
+
+def draw_occ_uniforms(cfg: MapperConfig, generator: torch.Generator, device) -> torch.Tensor:
+    """(N, S) uniforms of the occupancy update's corner draws."""
+    return torch.rand((cfg.rays_per_window, cfg.n_samples_train), generator=generator, device=device)
+
+
+def draw_permutation(window, generator: torch.Generator, device) -> torch.Tensor:
+    """(W, P) int64: a random permutation of each keyframe's P points."""
+    w, p = window.dirs.shape[:2]
+    return torch.argsort(torch.rand((w, p), generator=generator, device=device), dim=1)
+
+
+def fixed_ray_idx(perm: torch.Tensor, iteration: int, rays_per_kf: int) -> torch.Tensor:
+    """FIXED's lidar indices at ``iteration``: rays_per_kf consecutive
+    entries of each keyframe's permutation (W, P) from (iteration *
+    rays_per_kf) mod P on, wrapping; P // rays_per_kf iterations visit every
+    point once."""
+    p = perm.shape[1]
+    start = (int(iteration) * rays_per_kf) % p
+    cols = (start + torch.arange(rays_per_kf, device=perm.device)) % p
+    return perm[:, cols]
 
 
 def build_window_rays(poses: torch.Tensor, window, cube, cfg: MapperConfig, ray_idx: torch.Tensor, sky_idx: torch.Tensor) -> RayBundle:
     """rays_per_kf lidar + sky_rays_per_kf sky rays from every keyframe of
     the window, as one flat bundle of W * (R + Rs) rays, keyframe-major with
     each keyframe's lidar rays before its sky rays. Gradients flow to
-    ``poses`` through the lidar rays; sky rays use the detached pose."""
-    if cfg.rays_strategy != "RANDOM":
-        raise NotImplementedError(
-            f"rays_strategy={cfg.rays_strategy!r}: only RANDOM is ported (ROADMAP.md, queue A item 5)"
-        )
+    ``poses`` through the lidar rays; sky rays use the detached pose. Under
+    MASK the first ``int(R * mask_band_fraction)`` of each keyframe's
+    ``ray_idx`` index its trunk band (``window.band_idx``), the rest its
+    scan."""
+    if cfg.rays_strategy not in _RAYS_STRATEGIES:
+        raise ValueError(f"rays_strategy={cfg.rays_strategy!r}: one of {_RAYS_STRATEGIES}")
+    if cfg.rays_strategy == "MASK":
+        n_band = int(cfg.rays_per_kf * cfg.mask_band_fraction)
+        ray_idx = torch.cat([torch.gather(window.band_idx, 1, ray_idx[:, :n_band]), ray_idx[:, n_band:]], dim=1)
     sky_range = cfg.ray_range[1] + 1.0
     T = se3.pose_to_matrix(poses[window.pose_idx])  # (W, 4, 4)
 
@@ -286,9 +346,8 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
     Without ``draws`` the step draws from ``generator`` (one seeded with 0
     on ``device`` when None), kept as ``train_step.generator``."""
     dev = resolve_device(device)
-    if cfg.samples_strategy != "OGM":
-        raise NotImplementedError(
-            f"samples_strategy={cfg.samples_strategy!r}: only OGM is ported (ROADMAP.md, queue A item 2)")
+    if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
+        raise ValueError(f"samples_strategy={cfg.samples_strategy!r}: one of {_SAMPLES_STRATEGIES}")
     cube = cube.to(dev)
     # f32 products stay f32 (the JAX package's precision), never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -301,12 +360,16 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
     cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=cfg.n_samples_train))
 
     def forward(params, poses, occ_grid, window, draws, iteration, global_step):
-        bundle = build_window_rays(poses, window, cube, cfg, draws.ray_idx, draws.sky_idx)
-        z_vals = sampling.occ_grid_sampler_z_vals(
-            bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat, draws.u_pdf
-        )
-        # one pass over the points: the JAX step's train_point_chunks
-        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=1)
+        ray_idx = (fixed_ray_idx(draws.perm, iteration, cfg.rays_per_kf) if cfg.rays_strategy == "FIXED"
+                   else draws.ray_idx)
+        bundle = build_window_rays(poses, window, cube, cfg, ray_idx, draws.sky_idx)
+        if cfg.samples_strategy == "OGM":
+            z_vals = sampling.occ_grid_sampler_z_vals(
+                bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat, draws.u_pdf
+            )
+        else:
+            z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
+        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=cfg.train_point_chunks)
         loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
         return loss, aux, render, bundle
 
@@ -386,3 +449,37 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
 
     train_step.generator = generator
     return train_step
+
+
+def make_render_fn(cfg: MapperConfig, test: bool = True, sigma_only: bool = True,
+                   render_strategy: str = "default", device="cuda"):
+    """The evaluation render ``render_fn(params, occ_grid, bundle, u_pdf=None,
+    generator=None) -> RenderResult`` on ``device``, without gradients:
+    ``n_samples_test`` samples per ray (``n_samples_train`` when not
+    ``test``), no stratified jitter, OGM or UNIFORM as the config says, the
+    field in ``cfg.nerf.point_chunks`` chunks. OGM's importance half still
+    draws its inverse-CDF uniforms, as the JAX package's render does:
+    ``u_pdf`` (N, S/2), else drawn from ``generator``."""
+    if not sigma_only:
+        raise NotImplementedError("sigma_only=False: the intensity branch comes with the camera phase "
+                                  "(ROADMAP.md, queue A item 2)")
+    if render_strategy != "default":
+        raise NotImplementedError(f"render_strategy={render_strategy!r} needs composite_peak_adjusted "
+                                  "(ROADMAP.md, queue A item 3)")
+    if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
+        raise ValueError(f"samples_strategy={cfg.samples_strategy!r}: one of {_SAMPLES_STRATEGIES}")
+    dev = resolve_device(device)
+    n_samples = cfg.n_samples_test if test else cfg.n_samples_train
+
+    @torch.no_grad()
+    def render_fn(params, occ_grid, bundle: RayBundle, u_pdf: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+        if cfg.samples_strategy == "OGM":
+            if u_pdf is None:
+                u_pdf = torch.rand((bundle.near.shape[0], n_samples // 2), generator=generator, device=dev)
+            z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, 0.0, None, u_pdf)
+        else:
+            z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, 0.0)
+        return render_rays(params, bundle, z_vals, cfg.nerf)
+
+    return render_fn

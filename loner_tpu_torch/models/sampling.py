@@ -1,9 +1,11 @@
 """Ray samplers: stratified-uniform and occupancy-guided importance sampling.
 
 The port of ``loner_tpu/models/sampling.py`` (``stratified_z_vals``,
-``sample_pdf``, ``occ_grid_sampler_z_vals``). Every ray yields exactly
-``n_samples`` z values. The random draws come from the caller as uniform
-tensors, so a test can hand both packages the same numbers.
+``sample_pdf``, ``uniform_sampler_z_vals``, ``occ_grid_sampler_z_vals``).
+Every ray yields exactly ``n_samples`` z values. The random draws come from
+the caller as uniform tensors, so a test can hand both packages the same
+numbers; with ``perturb=0`` the stratified samples are the interval ends and
+need none.
 """
 from __future__ import annotations
 
@@ -40,6 +42,12 @@ def sample_pdf(
     """(N, K) inverse-CDF samples of the piecewise-constant pdf over
     ``bins``; kernel B3 for CUDA tensors."""
     return pdf_sample(bins.contiguous(), build_cdf(weights, eps).contiguous(), u.contiguous(), eps)
+
+
+def uniform_sampler_z_vals(bundle, n_samples: int, perturb: float = 1.0, u: torch.Tensor = None) -> torch.Tensor:
+    """(N, n_samples) stratified samples between each ray's near and far,
+    differentiable through them (``u``: (N, n_samples) when perturb > 0)."""
+    return stratified_z_vals(bundle.near, bundle.far, n_samples, perturb, u)
 
 
 def _reattach_affine_z(z_sg: torch.Tensor, near: torch.Tensor, far: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ one device; the worker thread enters that device, since torch's current
 device is per thread.
 
 Not ported, and raising ``NotImplementedError``: loop closure (queue A item
-10), camera images (item 9), and the tracker and mapper on disjoint cards
-(item 13).
+1), camera images (item 2), and the tracker and mapper on disjoint cards
+(item 7).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from loner_tpu_torch.tracking.tracker import Tracker, TrackerConfig
 @dataclass
 class LoopClosureConfig:
     """The pose-graph loop closure's configuration (the closure itself is
-    queue A item 10; ``enabled`` raises)."""
+    queue A item 1; ``enabled`` raises)."""
 
     enabled: bool = False
     min_index_gap: int = 8
@@ -66,17 +66,17 @@ class SlamConfig:
     max_time_delta: float = 3.0
     use_groundtruth_poses: bool = False
     loop_closure: LoopClosureConfig = field(default_factory=LoopClosureConfig)
-    concurrent_device_split: bool = False  # queue A item 13
+    concurrent_device_split: bool = False  # queue A item 7
 
 
 class LonerSLAM:
     def __init__(self, cfg: SlamConfig, cube: WorldCube, out_dir: Optional[str] = None, device="cuda"):
         if cfg.loop_closure.enabled:
             raise NotImplementedError("loop_closure.enabled: the pose-graph loop closure is not ported "
-                                      "(ROADMAP.md, queue A item 10)")
+                                      "(ROADMAP.md, queue A item 1)")
         if cfg.concurrent_device_split:
             raise NotImplementedError("concurrent_device_split: tracker and mapper on disjoint cards is not "
-                                      "ported (ROADMAP.md, queue A item 13)")
+                                      "ported (ROADMAP.md, queue A item 7)")
         self.cfg = cfg
         self.cube = cube
         self.out_dir = out_dir
@@ -154,7 +154,7 @@ class LonerSLAM:
         return result.pose
 
     def process_image(self, image: np.ndarray, timestamp: float) -> None:
-        raise NotImplementedError("process_image: camera images are not ported (ROADMAP.md, queue A item 9)")
+        raise NotImplementedError("process_image: camera images are not ported (ROADMAP.md, queue A item 2)")
 
     def stop(self, out_dir: Optional[str] = None):
         """Drain the mapper's queue, stop the worker, and write the output

@@ -12,7 +12,12 @@ from pathlib import Path
 import pytest
 import torch
 
+import numpy as np
+
 import loner_tpu_torch
+from loner_tpu_torch import bench, optimize_implicit_map, run_slam
+from loner_tpu_torch.data import synthetic
+from loner_tpu_torch.data.scan import make_lidar_scan
 from loner_tpu_torch.flagship import flagship
 from loner_tpu_torch.geometry.world_cube import compute_world_cube
 from loner_tpu_torch.mapping import keyframe as tkf
@@ -25,6 +30,7 @@ from loner_tpu_torch.ops import cp_kernel as tcp
 from loner_tpu_torch.ops import fused_encoder as tfe
 from loner_tpu_torch.ops import triad_field as ttriad
 from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.runtime.run_io import load_run
 from loner_tpu_torch.slam import LonerSLAM, LoopClosureConfig, SlamConfig
 from loner_tpu_torch.tracking import icp as ticp
 from loner_tpu_torch.tracking.tracker import Tracker, TrackerConfig
@@ -86,6 +92,13 @@ def test_entry_points_default_to_the_card():
                  lambda: ticp.icp_point_to_plane(torch.zeros((4, 3)), torch.zeros((4, 3)))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # the users' drivers, the run loader and the eval render
+    for make in (lambda: run_slam.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
+                 lambda: optimize_implicit_map.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
+                 lambda: bench.main([]), lambda: load_run("no_such_run"), lambda: topt.make_render_fn(cfg),
+                 lambda: run_slam.run_trial(None, None, "unused", False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     # the public constructors too
     gen = torch.Generator()
     small = tnerf.NeRFConfig(triad=ttriad.TriadConfig(cp_resolutions=(4,), cp_features=2, hash_levels=1, hash_features=2))
@@ -127,23 +140,45 @@ def _slam(**changes):
 
 # option -> (changes to a small CPU LonerSLAM's config, the message's marker)
 UNPORTED_SLAM = {
-    "camera": ({"mapper.camera.enabled": True}, "item 9"),
-    "loop_closure": ({"loop_closure": LoopClosureConfig(enabled=True)}, "item 10"),
-    "device_split": ({"concurrent_device_split": True}, "item 13"),
-    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 13"),
-    "tracker_device_index": ({"tracker.device_index": 0}, "item 13"),
-    "rays_mask": ({"mapper.mapper.rays_strategy": "MASK"}, "item 5"),
-    "rays_fixed": ({"mapper.mapper.rays_strategy": "FIXED"}, "item 5"),
-    "samples_uniform": ({"mapper.mapper.samples_strategy": "UNIFORM"}, "item 2"),
+    "camera": ({"mapper.camera.enabled": True}, "item 2"),
+    "loop_closure": ({"loop_closure": LoopClosureConfig(enabled=True)}, "item 1"),
+    "device_split": ({"concurrent_device_split": True}, "item 7"),
+    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 7"),
+    "tracker_device_index": ({"tracker.device_index": 0}, "item 7"),
     "debug_icp_clouds": ({"mapper.debug": DebugFlags(global_enabled=True, draw_icp_clouds=True)}, "debug_dump"),
     "debug_rays": ({"mapper.debug": DebugFlags(global_enabled=True, draw_rays=True)}, "debug_dump"),
 }
+# options that raised until the offline slice ported them: each now builds
+# and maps one keyframe
+PORTED_SLAM = {
+    "rays_mask": {"mapper.mapper.rays_strategy": "MASK"},
+    "rays_fixed": {"mapper.mapper.rays_strategy": "FIXED"},
+    "samples_uniform": {"mapper.mapper.samples_strategy": "UNIFORM"},
+}
+
+
+@pytest.mark.parametrize("option", sorted(PORTED_SLAM))
+def test_ported_options_run(option):
+    """A small CPU LonerSLAM with the option maps its first keyframe: finite
+    steps, as many as the schedule says (FIXED: one epoch over the padded
+    scan, P // R steps)."""
+    small = {"mapper.mapper.rays_per_kf": 16, "mapper.mapper.sky_rays_per_kf": 4, "mapper.mapper.n_samples_train": 16,
+             "mapper.schedule": [tmapper.SchedulePhase(1, [tmapper.IterationPhase(3, freeze_poses=True)])]}
+    slam = _slam(**small, **PORTED_SLAM[option])
+    poses, ts = synthetic.circular_trajectory(n_poses=2, radius=3.0)
+    dirs, dists, stamps, hit = synthetic.simulate_scan(synthetic.Scene.default(), poses[0], ts[0], n_channels=8,
+                                                       n_azimuth=32, max_range=40.0)
+    scan = make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=128)
+    assert slam.mapper.process_frame(scan, 0.0, np.eye(4))
+    steps = 128 // 16 if option == "rays_fixed" else 3
+    assert slam.mapper._host_step == int(slam.mapper.state.global_step) == steps
+    assert int(slam.mapper.state.skipped_steps) == 0
 
 
 @pytest.mark.parametrize("impl", ["cell", "packed", "exact", *UNPORTED_SLAM, "process_image"])
 def test_unported_paths_raise(impl):
     if impl == "process_image":
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 2"):
             _slam().process_image(None, 0.0)
         return
     if impl in UNPORTED_SLAM:

@@ -123,19 +123,11 @@ CFG_FILES = sorted(
     os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "cfg", "**", "*.yaml"), recursive=True)
     if "tracker" in open(p).read() or "baseline" in open(p).read()
 )
-# MapperConfig fields of the JAX package that the port does not have: the
-# MASK strategy's band fraction (MASK raises in the port) and the train
-# step's point chunks (the port's step makes one pass, as the default 1)
-JAX_ONLY = {"mask_band_fraction": 0.75, "train_point_chunks": 1}
-
-
 def _assert_same_config(t, j, path="cfg"):
     if dataclasses.is_dataclass(j) or hasattr(j, "_fields"):
         names = [f.name for f in dataclasses.fields(j)] if dataclasses.is_dataclass(j) else list(j._fields)
         for name in names:
-            if not hasattr(t, name):
-                assert JAX_ONLY.get(name, object()) == getattr(j, name), f"{path}.{name} is not in the port"
-                continue
+            assert hasattr(t, name), f"{path}.{name} is not in the port"
             _assert_same_config(getattr(t, name), getattr(j, name), f"{path}.{name}")
         return
     if isinstance(j, (list, tuple)):
@@ -263,18 +255,37 @@ def replayed_jax_draws(jcfg, seed: int):
     return draws
 
 
-def test_online_mapper_matches_jax(tmp_path):
-    """Two keyframes, 3 pose-frozen steps then 2 joint steps with the
-    occupancy update every second step, from the JAX mapper's initial state
-    and with its draws: every step's loss within 1e-5 (relative) and the
-    poses within 0.2 lr of the JAX mapper's, as one train step is held in
-    test_torch_train_step.py; the same published keyframe poses."""
+def replayed_jax_fixed_draws(jcfg, seed: int, n_per_phase: int):
+    """``step_draws`` under FIXED: each phase of ``n_per_phase`` steps splits
+    the JAX mapper's key chain once, and every step of the phase draws from
+    that held key at its iteration, as the JAX mapper's window schedule
+    does (``mapper.py:250-263``)."""
+    key, held, calls = [jax.random.PRNGKey(seed + 1)], [None], [0]
+
+    def draws(window):
+        it = calls[0] % n_per_phase
+        if it == 0:
+            key[0], held[0] = jax.random.split(key[0])
+        calls[0] += 1
+        return tp.torch_draws(tp.jax_step_draws(held[0], jcfg, window, iteration=it))
+
+    return draws
+
+
+def _mapper_pair(tmp_path, rays_strategy="RANDOM"):
+    """Both packages' online mappers over two keyframes of the default scene
+    (the occupancy update every second step; the port's from the JAX
+    mapper's initial state, with its draws replayed), each frame processed
+    by both. Returns (JAX mapper, the port's, the port's config, the
+    published keyframe poses of each)."""
     scene = tp.jsyn.Scene.default()
     poses, ts = tp.jsyn.circular_trajectory(n_poses=2, radius=6.0, z=1.5)
     jcube = j_compute_world_cube(poses, ray_range=tp.RAY_RANGE, rebase_to_first_pose=False)
     tcube = compute_world_cube(poses, ray_range=tp.RAY_RANGE, rebase_to_first_pose=False)
     jcfg, tcfg = tp.mapper_configs(float(jcube.scale_factor))
-    jcfg, tcfg = (c._replace(occ=c.occ._replace(n_iters_acc=2)) for c in (jcfg, tcfg))
+    jcfg, tcfg = (c._replace(occ=c.occ._replace(n_iters_acc=2), rays_strategy=rays_strategy) for c in (jcfg, tcfg))
+    draws = (replayed_jax_draws(jcfg, 0) if rays_strategy != "FIXED"
+             else replayed_jax_fixed_draws(jcfg, 0, tp.SCAN["pad_to"] // tcfg.rays_per_kf))
     (jsched, tsched) = _schedules()
     kw = dict(n_sky_pad=tp.SCAN["n_sky"], log_level="DISABLED", log_losses=True)
     jm = jmapper.OnlineMapper(jmapper.OnlineMapperConfig(
@@ -283,7 +294,7 @@ def test_online_mapper_matches_jax(tmp_path):
     tm = tmapper.OnlineMapper(tmapper.OnlineMapperConfig(
         mapper=tcfg, keyframe_manager=tkfm.KeyFrameManagerConfig(time_diff_seconds=1.0, window_size=2),
         schedule=list(tsched), loss_log_dir=str(tmp_path / "t"), **kw), tcube, device="cpu",
-        step_draws=replayed_jax_draws(jcfg, 0))
+        step_draws=draws)
     tm.state = state_from_jax(tp.np_tree(jm.state), device="cpu")
     published = {"j": [], "t": []}
     jm.keyframe_update_callbacks.append(lambda *a: published["j"].append(a))
@@ -298,10 +309,13 @@ def test_online_mapper_matches_jax(tmp_path):
                                  np.float64)
         assert jm.process_frame(scan, t0, tracked, gt_pose=T, sky=sky)
         assert tm.process_frame(LidarScan(*scan), t0, tracked, gt_pose=T, sky=LidarScan(*sky))
+    return jm, tm, tcfg, published
 
-    assert tm._host_step == jm._host_step == SCHEDULE["first"] + SCHEDULE["later"]
-    assert int(tm.state.global_step) == int(jm.state.global_step) == 5
-    assert int(tm.state.skipped_steps) == 0
+
+def _assert_mappers_agree(tmp_path, jm, tm, tcfg, published):
+    """Every step's loss within 1e-5 (relative) and its terms within 1e-4,
+    the poses within 0.2 lr, the occupancy grid within 1e-6, the same
+    published keyframe poses."""
     for kf in (1, 2):
         jl = np.loadtxt(tmp_path / "j" / f"keyframe_{kf}" / "phase_0.csv", delimiter=",", skiprows=1)
         tl = np.loadtxt(tmp_path / "t" / f"keyframe_{kf}" / "phase_0.csv", delimiter=",", skiprows=1)
@@ -315,7 +329,35 @@ def test_online_mapper_matches_jax(tmp_path):
     for a, b in zip(published["t"], published["j"]):
         assert a[0] == b[0]
         np.testing.assert_allclose(a[2], b[2], rtol=0, atol=1e-5)
+
+
+def test_online_mapper_matches_jax(tmp_path):
+    """Two keyframes, 3 pose-frozen steps then 2 joint steps with the
+    occupancy update every second step, from the JAX mapper's initial state
+    and with its draws: every step's loss within 1e-5 (relative) and the
+    poses within 0.2 lr of the JAX mapper's, as one train step is held in
+    test_torch_train_step.py; the same published keyframe poses."""
+    jm, tm, tcfg, published = _mapper_pair(tmp_path)
+    assert tm._host_step == jm._host_step == SCHEDULE["first"] + SCHEDULE["later"]
+    assert int(tm.state.global_step) == int(jm.state.global_step) == 5
+    assert int(tm.state.skipped_steps) == 0
+    _assert_mappers_agree(tmp_path, jm, tm, tcfg, published)
     assert len(tm.window_timer.rows) == 2 and [r[1] for r in tm.window_timer.rows] == [3, 2]
+
+
+def test_fixed_online_mapper_matches_jax(tmp_path):
+    """FIXED: each keyframe's phase is one epoch of P // R = 8 steps over the
+    padded scan, whatever the schedule says, run from the JAX mapper's
+    initial state with its draws, the key held through each phase (the
+    permutation and the occupancy-corner uniforms repeat; the sky, sampler
+    and encoder draws fold in the iteration): the same bounds as
+    ``test_online_mapper_matches_jax``."""
+    jm, tm, tcfg, published = _mapper_pair(tmp_path, "FIXED")
+    n = tp.SCAN["pad_to"] // tcfg.rays_per_kf
+    assert tm._host_step == jm._host_step == 2 * n == 16
+    assert int(tm.state.global_step) == int(jm.state.global_step) == 16
+    assert int(tm.state.skipped_steps) == 0
+    _assert_mappers_agree(tmp_path, jm, tm, tcfg, published)
 
 
 # ---------------------------------------------------------------------------

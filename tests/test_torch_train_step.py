@@ -286,9 +286,12 @@ def test_window_rays_match_jax_with_the_jax_draws():
     )
     for name in jb._fields:
         np.testing.assert_allclose(tp.t2n(getattr(tb, name)), np.asarray(getattr(jb, name)), rtol=1e-6, atol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError, match="RANDOM"):
-        topt.build_window_rays(torch.as_tensor(np.asarray(jstate.poses)), twindow, tcube,
-                               tcfg._replace(rays_strategy="MASK"), d.ray_idx, d.sky_idx)
+    # MASK over keyframes without trunk-band indices (band_idx = arange)
+    # draws exactly as RANDOM
+    tm = topt.build_window_rays(torch.as_tensor(np.asarray(jstate.poses)), twindow, tcube,
+                                tcfg._replace(rays_strategy="MASK"), d.ray_idx, d.sky_idx)
+    for name in tb._fields:
+        assert torch.equal(getattr(tm, name), getattr(tb, name)), name
 
 
 def test_state_from_jax_and_own_draws():

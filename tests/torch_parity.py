@@ -103,12 +103,15 @@ def jax_flagship_tiny(compute_dtype: str = "float32", seed: int = 0, hash_term: 
     return cfg, cube, state, window
 
 
-def jax_step_draws(key, cfg, window) -> dict:
+def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
     """The numbers one JAX train step draws from ``key`` (numpy), rebuilt by
-    repeating its key splits: ``optimizer.py:256`` (rays, sampler, encoder),
-    ``:177,180,190,200`` (per-keyframe ray and sky indices),
-    ``sampling.py:151,34`` and ``pdf_kernel.py:90`` / ``sampling.py:82``
-    (stratified and pdf uniforms), ``optimizer.py:386`` with
+    repeating its key splits: ``optimizer.py:256`` (rays, sampler, encoder;
+    under FIXED the sampler's and encoder's keys folded with the iteration,
+    ``:258-263``), ``:177,180,190,200`` (per-keyframe ray and sky indices;
+    under FIXED a permutation per keyframe and the sky key folded with the
+    iteration, ``:181-187``), ``sampling.py:151,34`` and ``pdf_kernel.py:90``
+    / ``sampling.py:82`` (stratified and pdf uniforms; under UNIFORM one
+    stratified draw of S, ``sampling.py:98``), ``optimizer.py:386`` with
     ``occupancy_grid.py:223`` (occupancy-corner uniforms), and the encoder's
     key ``k_enc`` as its two words (``fused_encoder.py:454-459``)."""
     w = window.dirs.shape[0]
@@ -116,27 +119,50 @@ def jax_step_draws(key, cfg, window) -> dict:
     s = window.sky_dirs.shape[1]
     n = cfg.rays_per_window
     half = cfg.n_samples_train // 2
+    fixed = cfg.rays_strategy == "FIXED"
+    it32 = jnp.asarray(iteration).astype(jnp.int32)
     k_rays, k_samp, k_enc = jax.random.split(key, 3)
-    ray_idx, sky_idx = [], []
+    if fixed:
+        k_samp, k_enc = jax.random.fold_in(k_samp, it32), jax.random.fold_in(k_enc, it32)
+    ray_idx, sky_idx, perm = [], [], []
     for k in jax.random.split(k_rays, w):
         k1, k2 = jax.random.split(k)
-        ray_idx.append(np.asarray(jax.random.randint(k1, (cfg.rays_per_kf,), 0, p)))
+        if fixed:
+            perm.append(np.asarray(jax.random.permutation(k1, p)))
+            k2 = jax.random.fold_in(k2, it32)
+        else:
+            ray_idx.append(np.asarray(jax.random.randint(k1, (cfg.rays_per_kf,), 0, p)))
         sky_idx.append(np.asarray(jax.random.randint(k2, (cfg.sky_rays_per_kf,), 0, s)))
-    k_unif, k_pdf = jax.random.split(k_samp)
+    if cfg.samples_strategy == "OGM":
+        k_unif, k_pdf = jax.random.split(k_samp)
+        u_strat = np.asarray(jax.random.uniform(k_unif, (n, half), dtype=jnp.float32))
+        u_pdf = np.asarray(jax.random.uniform(k_pdf, (n, half), dtype=jnp.float32))
+    else:
+        u_strat = np.asarray(jax.random.uniform(k_samp, (n, cfg.n_samples_train), dtype=jnp.float32))
+        u_pdf = None
     return dict(
-        ray_idx=np.stack(ray_idx).astype(np.int64),
+        ray_idx=None if fixed else np.stack(ray_idx).astype(np.int64),
         sky_idx=np.stack(sky_idx).astype(np.int64),
-        u_strat=np.asarray(jax.random.uniform(k_unif, (n, half), dtype=jnp.float32)),
-        u_pdf=np.asarray(jax.random.uniform(k_pdf, (n, half), dtype=jnp.float32)),
+        u_strat=u_strat,
+        u_pdf=u_pdf,
         u_occ=np.asarray(
             jax.random.uniform(jax.random.fold_in(key, 0x0CC), (n, cfg.n_samples_train), dtype=jnp.float32)
         ),
         enc_key=np.asarray(k_enc, np.uint32).astype(np.int64),  # the key's two words
+        perm=np.stack(perm).astype(np.int64) if fixed else None,
     )
 
 
 def torch_draws(draws: dict, device="cpu") -> topt.StepDraws:
-    return topt.StepDraws(**{k: torch.as_tensor(np.array(v)).to(device) for k, v in draws.items()})
+    return topt.StepDraws(**{k: None if v is None else torch.as_tensor(np.array(v)).to(device)
+                             for k, v in draws.items()})
+
+
+def jax_render_u_pdf(key, n_rays: int, n_samples: int) -> np.ndarray:
+    """The inverse-CDF uniforms of the JAX package's eval render
+    (``make_render_fn``) from ``key``: the OGM sampler's pdf key
+    (``sampling.py:151``) drawn by the jnp ``sample_pdf`` (``:82``)."""
+    return np.array(jax.random.uniform(jax.random.split(key)[1], (n_rays, n_samples // 2), dtype=jnp.float32))
 
 
 def np_tree(tree):
@@ -171,6 +197,24 @@ def rel_err(a, b) -> float:
     num = sum(float(np.sum((x.astype(np.float64) - y) ** 2)) for x, y in zip(la, lb))
     den = sum(float(np.sum(y.astype(np.float64) ** 2)) for y in lb)
     return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def load_example(name: str):
+    """The module of ``examples/<name>.py``, loaded from its file (it puts
+    the repo root on ``sys.path`` when imported; ``sys.path`` is restored)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    saved_path = list(sys.path)
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        sys.path[:] = saved_path
+    return module
 
 
 def load_script(name: str):
