@@ -22,7 +22,10 @@ In order:
      between. The memory probes' kernels
      (row_scatter_add, row_gather, col_gather, lane_gather, sublane_gather,
      two_stage_gather, cp_fwd_gather) run at their probe scripts' default
-     shapes against their plain versions and library calls;
+     shapes against their plain versions and library calls, col_gather
+     also on an odd N and on one row, two_stage_gather also on rows of
+     all-distinct m and of one value (each kernel's device ms beside its
+     bound and its share of it);
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
      just before and read just after: each kernel of the path must have
@@ -487,6 +490,20 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
                           _bound(4 * n + 4 * n * w + 4 * t * w, n * w), lib_ms))
     del idx, upd, idx64, exact, int_idx, int_upd, int_exact
 
+    def variant_ms(name, fn, plain, library, tab, variants):
+        """{variant: device ms} of ``fn(tab, idx)`` on each variant's
+        indices, after holding it equal to its plain version and library
+        call there."""
+        out = {}
+        for label, ix in variants.items():
+            got = fn(tab, ix)
+            if not (torch.equal(got, plain(tab, ix)) and torch.equal(got, library(ix))):
+                raise AssertionError(f"{name} disagrees with its plain version or its library call on {label}")
+            del got
+            out[label] = _graph_ms(lambda: fn(tab, ix))
+        print(f"{name} device ms by graph replay on other indices: {out}", flush=True)
+        return out
+
     def gather_entry(name, fn, plain, library, nbytes, replaces):
         out, ref = fn(), plain()
         if not (torch.equal(out, ref) and torch.equal(out, library())):
@@ -507,7 +524,13 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
                  lambda: torch.index_select(table, 0, idx64), nbytes, "scripts/bench_gather.py:106")
     gather_entry("col_gather", lambda: gs.col_gather(table_t, idx), lambda: gs.col_gather_ref(table_t, idx),
                  lambda: torch.index_select(table_t, 1, idx64), nbytes, "scripts/bench_gather.py:127")
-    del table, table_t, idx, idx64
+    # one point fewer (scalar stores), and every point on one row (one L2
+    # sector a point: what the sectors cost the random draws)
+    odd, same = idx[1:], torch.full_like(idx, t // 2)
+    details["col_gather_variants"] = variant_ms(
+        "col_gather", gs.col_gather, gs.col_gather_ref, lambda i: torch.index_select(table_t, 1, i.long()),
+        table_t, {"odd_n": odd, "one_row": same})
+    del table, table_t, idx, idx64, odd, same
 
     # P3/P6: one flagship level as an (N/128, 128) lane gather
     rows = n // 128
@@ -541,7 +564,27 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     gather_entry("two_stage_gather", lambda: gs.two_stage_gather(tab, idxs),
                  lambda: gs.two_stage_gather_ref(tab, idxs), two_gathers, 4 * (r * 128 + 2 * idxs.numel()),
                  "scripts/bench_dyngather.py:93")
-    del tab, idx, idx64, lane_idx, idxs, idxs64, lane64
+    # rows whose m are all distinct (no value read twice: the design's worst
+    # case), as arange(128) and as a random permutation of it (which spreads
+    # a row's lookups over the whole table), plus random multiples of 128;
+    # and every index equal (one m a row, one sector a lookup)
+    shift = 128 * torch.randint(0, r // 128, idxs.shape, generator=gen, device=dev, dtype=torch.int32)
+    perm = torch.argsort(torch.rand(idxs.shape, generator=gen, device=dev), dim=-1).int()
+    variants = {"all_distinct_m": torch.arange(128, device=dev, dtype=torch.int32) + shift,
+                "permuted_m": perm + shift, "one_value": torch.full_like(idxs, r // 2)}
+    details["two_stage_gather_variants"] = variant_ms(
+        "two_stage_gather", gs.two_stage_gather, gs.two_stage_gather_ref,
+        lambda i: torch.gather(torch.gather(tab.expand(chunks, -1, -1), 1, i.long()), 2, i.long() % 128), tab,
+        variants)
+
+    def lookups(ix):
+        """Table values the kernel reads: the distinct m of each row, summed."""
+        m = torch.sort(ix % 128, dim=-1).values
+        return ix.shape[0] * ix.shape[1] + int((m[..., 1:] != m[..., :-1]).sum())
+
+    details["two_stage_gather_lookups"] = {k: lookups(v) for k, v in {"uniform": idxs, **variants}.items()}
+    print(f"two_stage_gather distinct lookups: {details['two_stage_gather_lookups']}", flush=True)
+    del tab, idx, idx64, lane_idx, idxs, idxs64, lane64, shift, perm, variants
 
     # P5: the CP forward by direct lookups, on B1's flagship inputs
     out = cp_kernel.cp_fwd_gather(lines, pts, res, nf)
@@ -558,9 +601,10 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     details["cp_fwd_gather_vs_b1"] = err_b1
     for e in entries:
         graph = details.get(f"{e['name']}_graph_ms", {})
+        share = f", {e['bound_ms'] / graph['kernel']:.0%} of the bound" if graph else ""
         print(f"{e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} by "
               f"{e['bound_by']}, library {e['library_ms']}), max abs err {e['max_abs_err']:.3e}; "
-              f"device ms by graph replay {graph}", flush=True)
+              f"device ms by graph replay {graph}{share}", flush=True)
     return entries, details
 
 

@@ -34,14 +34,45 @@
 //    that each store instruction of a warp writes 512 contiguous bytes (one
 //    thread per 32-byte row writes them with two half-filled instructions);
 //    streaming stores, since the output is not read back here.
-//  * col_gather: one thread per (column, point), the column on the grid's y
-//    axis, so that neighbouring points store to neighbouring addresses. Each
-//    4-byte lookup still moves a whole 32-byte sector from L2, W times per
-//    point where row_gather moves one row: this layout pays in L2 traffic
-//    what the byte bound does not count.
-//  * lane, sublane and two-stage gathers: one thread per output element.
-//    The two-stage lookup is fused: it reads idx twice and tab once and never
-//    materialises the intermediate of the first stage.
+//  * col_gather and two_stage_gather: their first designs, one thread per
+//    output element, ran at 23% and 43% of their byte bounds. Timed on
+//    indices that hit one sector (PERF.md section 6), they fell from 0.115
+//    to 0.048 ms and from 0.107 to 0.070 ms: random lookups were about half
+//    the time, per-element work the rest (col_gather read idx once per
+//    column; two_stage_gather chained three dependent loads). What a random
+//    4-byte lookup costs here is one request for a 32-byte L2 sector: the
+//    card serves about 138 G of them a second from a 2 MB table (the
+//    marginal cost of two_stage_gather's distinct lookups, chip_smoke.py).
+//    Lookups that repeat an address within a warp or hit L1 cost little,
+//    so the count that matters is distinct sectors.
+//  * col_gather, one call = two launches. A first kernel writes table_t
+//    (W, T) transposed into the wrapper's (T, W4) scratch (W rounded up to
+//    a multiple of 4, pad columns zero) through a 32 x 32 shared tile, so
+//    that reads and writes are both coalesced. The gather then gives each
+//    block 256 points: it reads their indices once, fetches each point's
+//    row of the scratch as float4s (one sector a point at W = 8, where the
+//    column-major design paid W sectors and read idx W times) into a
+//    (band, 256 + 4) shared tile, and writes the band's rows of out as
+//    float4 streaming stores (scalar ones when N % 4 != 0, which float4
+//    rows of out need). Columns go in bands of 32, so any W takes at most
+//    33 KB of shared memory. Bound by bytes again (69% of the bound at the
+//    probe's shape); worst case: a point's row takes W / 8 sectors, whatever
+//    the indices.
+//  * two_stage_gather: out[c, i, j] depends on its row (c, i) and on
+//    m = idx[c, i, j] mod C alone, so a row has at most C distinct values
+//    v[m] = tab[idx[c, i, m], m]. A warp takes a row: it marks in shared
+//    memory the m its elements use, reads v only for the marked m (about
+//    81 of 128 at the probe's uniform draws), then writes v[m_j] for each
+//    j (int4 index loads and float4 streaming stores when C % 4 == 0 and
+//    both are 16-byte aligned). A row of at most 64 V columns stays in the
+//    lanes' registers, read from device memory once; a longer one goes in
+//    pieces of 1024 m, each pass reading the row again (from L1), so any C
+//    fits in 40 KB of shared memory. The first design's duplicate lookups
+//    already hit L1, so the distinct lookups, at the card's sector rate,
+//    bound both designs: 12M of them at the probe's shape take 0.086 ms of
+//    the 0.107. Worst case: a row whose m are all distinct reads C values,
+//    one per element, as the first design did.
+//  * lane and sublane gathers: one thread per output element.
 //
 // Indices are in range by construction in every probe; the kernels do not
 // check them (the plain CPU versions, torch.gather and indexing, raise on a
@@ -117,13 +148,66 @@ __global__ void row_gather_kernel(const V* __restrict__ table, const int* __rest
   __stcs(out + e, __ldg(table + (u32)__ldg(idx + p) * wv + (e - p * wv)));
 }
 
-// out (W, N): out[c, p] = table_t[c, idx[p]], table_t (W, T); column c is
-// the grid's y index
-__global__ void col_gather_kernel(const float* __restrict__ table_t, const int* __restrict__ idx,
-                                  float* __restrict__ out, u32 n, u32 t) {
-  THREAD_ELEMENT(p, n);
-  const u32 c = blockIdx.y;
-  out[c * n + p] = table_t[c * t + (u32)idx[p]];
+#define CG_POINTS 256              // points (and threads) a gather block
+#define CG_BAND 32                 // columns a band of the gather's tile, a multiple of 4
+#define CG_STRIDE (CG_POINTS + 4)  // tile row stride: float4 rows, 4 banks apart
+
+// block (x, y) writes rows t0 = 32 x .. of tt (T, w4), columns c0 = 32 y ..:
+// tt[t, c] = table_t[c, t], zero for the pad columns c >= w
+__global__ void transpose_kernel(const float* __restrict__ table_t, float* __restrict__ tt, u32 t, u32 w, u32 w4) {
+  __shared__ float tile[32][33];
+  const u32 t0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const u32 tw = min(32u, t - t0), cw = min(32u, w4 - c0);
+  for (u32 k = threadIdx.x; k < cw * 32; k += blockDim.x) {
+    const u32 cc = k >> 5, r = k & 31;
+    tile[cc][r] = (c0 + cc < w && r < tw) ? table_t[(c0 + cc) * t + t0 + r] : 0.f;
+  }
+  __syncthreads();
+  for (u32 k = threadIdx.x; k < tw * cw; k += blockDim.x) {  // at w4 <= 32 one contiguous span of tt
+    const u32 r = k / cw, cc = k - r * cw;
+    tt[(t0 + r) * w4 + c0 + cc] = tile[cc][r];
+  }
+}
+
+// out (W, N): out[c, p] = tt[idx[p], c]. Block b takes points p0 = 256 b ..;
+// band by band of columns, each point's row piece moves as float4s into
+// tile[c][p], then the band's rows of out are written from the tile. VEC:
+// float4 stores (n % 4 == 0 and out 16-byte aligned).
+template <bool VEC>
+__global__ void col_gather_kernel(const float4* __restrict__ tt, const int* __restrict__ idx,
+                                  float* __restrict__ out, u32 n, u32 w, u32 w4) {
+  extern __shared__ float4 cg_tile[];  // min(w4, CG_BAND) rows of CG_STRIDE floats
+  __shared__ u32 rows[CG_POINTS];
+  float* tile = (float*)cg_tile;
+  const u32 p0 = blockIdx.x * CG_POINTS, np = min((u32)CG_POINTS, n - p0), r4 = w4 / 4;
+  if (threadIdx.x < np) rows[threadIdx.x] = (u32)__ldcs(idx + p0 + threadIdx.x);
+  for (u32 b0 = 0; b0 < w4; b0 += CG_BAND) {
+    const u32 nv = min((u32)CG_BAND, w4 - b0) / 4;  // float4s a row piece
+    __syncthreads();  // rows staged; the last band written out
+    for (u32 q = threadIdx.x; q < np * nv; q += CG_POINTS) {
+      const u32 p = q / nv, v = q - p * nv;  // neighbouring threads: one row's float4s
+      const float4 x = __ldg(tt + rows[p] * r4 + b0 / 4 + v);
+      float* col = tile + 4 * v * CG_STRIDE + p;
+      col[0] = x.x;
+      col[CG_STRIDE] = x.y;
+      col[2 * CG_STRIDE] = x.z;
+      col[3 * CG_STRIDE] = x.w;
+    }
+    __syncthreads();
+    const u32 cw = min((u32)CG_BAND, w - b0);  // real columns of the band
+    if (VEC) {
+      for (u32 q = threadIdx.x; q < cw * (CG_POINTS / 4); q += CG_POINTS) {
+        const u32 cc = q / (CG_POINTS / 4), j = q % (CG_POINTS / 4);
+        if (4 * j < np)
+          __stcs((float4*)(out + (b0 + cc) * n + p0) + j, *(const float4*)(tile + cc * CG_STRIDE + 4 * j));
+      }
+    } else {
+      for (u32 q = threadIdx.x; q < cw * CG_POINTS; q += CG_POINTS) {
+        const u32 cc = q / CG_POINTS, p = q % CG_POINTS;
+        if (p < np) __stcs(out + (b0 + cc) * n + p0 + p, tile[cc * CG_STRIDE + p]);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -144,12 +228,144 @@ __global__ void sublane_gather_kernel(const float* __restrict__ tab, const int* 
   out[e] = tab[(u32)idx[e] * cols + e % cols];
 }
 
-// out[c, i, j] = tab[idx[c, i, m], m] with m = idx[c, i, j] mod cols
-__global__ void two_stage_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
-                                        float* __restrict__ out, u32 total, u32 cols) {
-  THREAD_ELEMENT(e, total);
-  const u32 m = (u32)idx[e] % cols;
-  out[e] = tab[(u32)idx[e - e % cols + m] * cols + m];  // e - e % cols: first element of e's row
+#define TS_WARPS 8     // warps a block, a row each
+#define TS_Q 2         // a short row, at most 32 x V x TS_Q columns, stays in registers
+#define TS_PIECE 1024  // columns m a warp holds values of at once in a longer row
+
+__device__ __forceinline__ void load_ints(const int* p, int (&e)[1]) { e[0] = __ldg(p); }
+__device__ __forceinline__ void load_ints(const int* p, int (&e)[4]) {
+  const int4 x = __ldg((const int4*)p);
+  e[0] = x.x, e[1] = x.y, e[2] = x.z, e[3] = x.w;
+}
+__device__ __forceinline__ void store_floats(float* p, const float (&f)[1]) { __stcs(p, f[0]); }
+__device__ __forceinline__ void store_floats(float* p, const float (&f)[4]) {
+  __stcs((float4*)p, make_float4(f[0], f[1], f[2], f[3]));
+}
+
+// where v[m] lives: a pad word after every 32, so that a lane's stores of
+// its V neighbouring m meet no bank conflict
+__device__ __forceinline__ u32 vpad(u32 m) { return m + (m >> 5); }
+
+// out[r, j] = v[m_j], v[m] = tab[idx[r, m] * cols + m], m_j = idx[r, j] mod
+// cols, for the nrows rows r of idx (K x R of them), a warp a row, for rows
+// of at most 32 V Q columns. Lane l holds the row's elements j = V (32 s +
+// l) + k, k < V, s < Q, and their m in registers: it marks its m, reads v
+// at its own j where marked, then writes v[m_j] for its j. V elements at
+// once (4: int4 loads and float4 stores).
+template <int V, int Q>
+__global__ void two_stage_short_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
+                                       float* __restrict__ out, u32 nrows, u32 cols) {
+  constexpr u32 width = 32 * V * Q, vwidth = width + width / 32;
+  extern __shared__ float ts_smem[];  // TS_WARPS x vwidth values, then TS_WARPS x width marks
+  const u32 warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const u32 row = blockIdx.x * TS_WARPS + warp;
+  if (row >= nrows) return;  // warp-uniform; no block barrier follows
+  float* v = ts_smem + warp * vwidth;
+  unsigned char* used = (unsigned char*)(ts_smem + TS_WARPS * vwidth) + warp * width;
+  const int* ir = idx + row * cols;
+  int e[Q][V] = {};
+  u32 m[Q][V];
+#pragma unroll
+  for (int s = 0; s < Q; ++s)
+    if ((32 * s + lane) * V < cols) load_ints(ir + (32 * s + lane) * V, e[s]);
+  for (u32 k = lane; k < width / 4; k += 32) ((u32*)used)[k] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < Q; ++s)
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      m[s][k] = (u32)e[s][k] % cols;
+      if ((32 * s + lane) * V < cols) used[m[s][k]] = 1;
+    }
+  __syncwarp();
+  float x[Q][V];
+#pragma unroll
+  for (int s = 0; s < Q; ++s)
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const u32 j = (32 * s + lane) * V + k;
+      if (j < cols && used[j]) x[s][k] = __ldg(tab + (u32)e[s][k] * cols + j);
+    }
+#pragma unroll
+  for (int s = 0; s < Q; ++s)
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const u32 j = (32 * s + lane) * V + k;
+      if (j < cols && used[j]) v[vpad(j)] = x[s][k];
+    }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < Q; ++s) {
+    const u32 q = (32 * s + lane) * V;
+    if (q < cols) {
+      float f[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) f[k] = v[vpad(m[s][k])];
+      store_floats(out + row * cols + q, f);
+    }
+  }
+}
+
+// The same for a longer row, piece by piece of TS_PIECE columns m: mark the
+// m_j in the piece, read v[m] for the marked m, write the elements whose
+// m_j is in it; each pass reads the row's indices again (from L1).
+template <int V>
+__global__ void two_stage_long_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
+                                      float* __restrict__ out, u32 nrows, u32 cols) {
+  extern __shared__ float ts_smem[];  // TS_WARPS x TS_PIECE values, then as many marks
+  const u32 warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const u32 row = blockIdx.x * TS_WARPS + warp;
+  if (row >= nrows) return;  // warp-uniform; no block barrier follows
+  float* v = ts_smem + warp * TS_PIECE;
+  unsigned char* used = (unsigned char*)(ts_smem + TS_WARPS * TS_PIECE) + warp * TS_PIECE;
+  const int* ir = idx + row * cols;
+  float* orow = out + row * cols;
+  for (u32 m0 = 0; m0 < cols; m0 += TS_PIECE) {
+    const u32 pw = min((u32)TS_PIECE, cols - m0);
+    for (u32 k = lane; k < pw; k += 32) used[k] = 0;
+    __syncwarp();
+    for (u32 q = lane * V; q < cols; q += 32 * V) {
+      int e[V];
+      load_ints(ir + q, e);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const u32 m = (u32)e[k] % cols - m0;  // wraps past pw below m0
+        if (m < pw) used[m] = 1;
+      }
+    }
+    __syncwarp();
+    for (u32 k0 = lane; k0 < pw; k0 += 4 * 32) {  // four lookups in flight a lane
+      float x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const u32 k = k0 + 32 * u;
+        if (k < pw && used[k]) x[u] = __ldg(tab + (u32)__ldg(ir + m0 + k) * cols + m0 + k);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const u32 k = k0 + 32 * u;
+        if (k < pw && used[k]) v[k] = x[u];
+      }
+    }
+    __syncwarp();
+    for (u32 q = lane * V; q < cols; q += 32 * V) {
+      int e[V];
+      load_ints(ir + q, e);
+      if (pw == cols) {
+        float f[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) f[k] = v[(u32)e[k] % cols];
+        store_floats(orow + q, f);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const u32 m = (u32)e[k] % cols - m0;
+          if (m < pw) __stcs(orow + q + k, v[m]);
+        }
+      }
+    }
+    __syncwarp();  // the next piece overwrites v and the marks
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -205,12 +421,27 @@ extern "C" int loner_row_gather(const float* table, const int* idx, float* out, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int loner_col_gather(const float* table_t, const int* idx, float* out, long long n,
+static bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
+// tt: the caller's (t, w4) scratch, w4 = w rounded up to a multiple of 4
+extern "C" int loner_col_gather(const float* table_t, const int* idx, float* tt, float* out, long long n,
                                 long long t, long long w, void* stream) {
-  if (w < 1 || w > 65535 || t < 1 || !fits32(n * w) || !fits32(t * w)) return (int)cudaErrorInvalidValue;
+  const long long w4 = (w + 3) / 4 * 4;
+  if (w < 1 || w > 65535 || t < 1 || !fits32(n * w) || !fits32(t * w4) || !aligned16(tt))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const dim3 grid(blocks_for(n), (unsigned int)w);
-  col_gather_kernel<<<grid, GS_THREADS, 0, STREAM(stream)>>>(table_t, idx, out, (u32)n, (u32)t);
+  const dim3 tgrid((unsigned int)((t + 31) / 32), (unsigned int)((w4 + 31) / 32));
+  transpose_kernel<<<tgrid, GS_THREADS, 0, STREAM(stream)>>>(table_t, tt, (u32)t, (u32)w, (u32)w4);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const unsigned int blocks = (unsigned int)((n + CG_POINTS - 1) / CG_POINTS);
+  const size_t smem = (size_t)(w4 < CG_BAND ? w4 : CG_BAND) * CG_STRIDE * sizeof(float);
+  if (n % 4 == 0 && aligned16(out))
+    col_gather_kernel<true><<<blocks, CG_POINTS, smem, STREAM(stream)>>>((const float4*)tt, idx, out, (u32)n,
+                                                                          (u32)w, (u32)w4);
+  else
+    col_gather_kernel<false><<<blocks, CG_POINTS, smem, STREAM(stream)>>>((const float4*)tt, idx, out, (u32)n,
+                                                                           (u32)w, (u32)w4);
   return (int)cudaGetLastError();
 }
 
@@ -236,10 +467,23 @@ extern "C" int loner_sublane_gather(const float* tab, const int* idx, float* out
 
 extern "C" int loner_two_stage_gather(const float* tab, const int* idx, float* out, long long chunks,
                                       long long rows, long long cols, void* stream) {
-  const long long total = chunks * rows * cols;
+  const long long nrows = chunks * rows, total = nrows * cols;
   if (!fits32(total)) return (int)cudaErrorInvalidValue;
   if (total <= 0) return 0;
-  two_stage_gather_kernel<<<blocks_for(total), GS_THREADS, 0, STREAM(stream)>>>(tab, idx, out, (u32)total,
-                                                                                 (u32)cols);
+  const bool vec = cols % 4 == 0 && aligned16(idx) && aligned16(out);
+  const long long width = 32LL * (vec ? 4 : 1) * TS_Q;  // the widest short row
+  const unsigned int blocks = (unsigned int)((nrows + TS_WARPS - 1) / TS_WARPS);
+  const size_t smem = cols <= width ? TS_WARPS * (size_t)(width + width / 32) * sizeof(float) + TS_WARPS * width
+                                    : TS_WARPS * (size_t)TS_PIECE * (sizeof(float) + 1);
+  const cudaStream_t s = STREAM(stream);
+  const u32 nr = (u32)nrows, c = (u32)cols;
+  if (cols <= width && vec)
+    two_stage_short_kernel<4, TS_Q><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
+  else if (cols <= width)
+    two_stage_short_kernel<1, TS_Q><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
+  else if (vec)
+    two_stage_long_kernel<4><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
+  else
+    two_stage_long_kernel<1><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
   return (int)cudaGetLastError();
 }

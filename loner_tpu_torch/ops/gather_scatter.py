@@ -159,7 +159,9 @@ row_gather.launches = 0
 
 
 def col_gather(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(W, N) columns ``table_t[:, idx]`` of a (W, T) f32 table."""
+    """(W, N) columns ``table_t[:, idx]`` of a (W, T) f32 table. On CUDA one
+    call is two launches: ``table_t`` transposed into a (T, W rounded up to
+    4) scratch, then a gather of its rows."""
     dev = _table(table_t, "table_t")
     kernels.require(idx, "idx", torch.int32, (idx.numel(),), dev)
     if dev.type == "cpu":
@@ -168,7 +170,9 @@ def col_gather(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, idx.numel()), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    _launch("col_gather", out, table_t.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), t, w)
+    scratch = torch.empty((t, -(-w // 4) * 4), dtype=torch.float32, device=dev)
+    _launch("col_gather", out, table_t.data_ptr(), idx.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            idx.numel(), t, w)
     col_gather.launches += 1
     return out
 
@@ -207,7 +211,8 @@ sublane_gather.launches = 0
 
 def two_stage_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(K, R, C) two-stage lookup of ``tab`` (R, C) by ``idx`` (K, R, C)
-    (see :func:`two_stage_gather_ref`), fused into one kernel on CUDA."""
+    (see :func:`two_stage_gather_ref`), fused into one kernel on CUDA that
+    reads each row's distinct values once."""
     dev = _table(tab, "tab")
     if idx.dim() != 3:
         raise ValueError(f"idx: expected (K, R, C), got shape {tuple(idx.shape)}")

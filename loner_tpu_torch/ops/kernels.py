@@ -56,8 +56,8 @@ _SIGNATURES = {
     "loner_shadow_sum": (_P, _P, _LL, _I, _I, _P),
     # table, idx, out, n, t, w, vec4, stream
     "loner_row_gather": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
-    # table_t, idx, out, n, t, w, stream
-    "loner_col_gather": (_P, _P, _P, _LL, _LL, _LL, _P),
+    # table_t, idx, (t, w rounded up to 4) scratch, out, n, t, w, stream
+    "loner_col_gather": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
     # tab, idx, out, rows, cols, stream
     "loner_lane_gather": (_P, _P, _P, _LL, _LL, _P),
     # tab, idx, out, rows, cols, stream

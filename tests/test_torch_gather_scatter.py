@@ -86,6 +86,17 @@ def _rows_case(kind, t, w, n, rng):
     return want, gs.col_gather(torch.as_tensor(table_t), torch.as_tensor(ix))
 
 
+def _two_stage_indices(kind, rng, shape):
+    """Uniform draws in [0, R), every index equal (one m a row), or rows whose
+    m are all distinct (``arange(C)`` plus random multiples of C below R)."""
+    k, rows, cols = shape
+    if kind == "two_stage_gather_all_equal":
+        return np.full(shape, rows - 1, np.int32)
+    if kind == "two_stage_gather_all_distinct":
+        return (np.arange(cols) + cols * rng.integers(0, rows // cols, shape)).astype(np.int32)
+    return _indices(rng, shape, rows)
+
+
 def _slab_case(kind, rows, chunks, rng):
     tab = rng.standard_normal((rows, 128)).astype(np.float32)
     if kind == "lane_gather":  # k_lane of bench_honest, bench_dyngather, bench_gather2
@@ -96,7 +107,7 @@ def _slab_case(kind, rows, chunks, rng):
         ix = _indices(rng, (rows, 128), rows)
         want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(ix), axis=0)
         return want, gs.sublane_gather(torch.as_tensor(tab), torch.as_tensor(ix))
-    ix = _indices(rng, (chunks, rows, 128), rows)  # bench_dyngather.k2, chunk by chunk
+    ix = _two_stage_indices(kind, rng, (chunks, rows, 128))  # bench_dyngather.k2, chunk by chunk
     outs = []
     for c in range(chunks):
         idx = jnp.asarray(ix[c])
@@ -105,8 +116,13 @@ def _slab_case(kind, rows, chunks, rng):
     return jnp.stack(outs), gs.two_stage_gather(torch.as_tensor(tab), torch.as_tensor(ix))
 
 
-ROW_SHAPES = [(256, 8, 1000), (8, 16, 37)]  # (T, W, N)
+ROW_SHAPES = [(256, 8, 1000), (8, 16, 37), (100, 3, 1001)]  # (T, W, N)
 SLAB_SHAPES = [(8, 3), (64, 2)]  # (rows, chunks of the two-stage lookup)
+# each slab lookup at each shape, and the two-stage lookup's index patterns
+# at 128 columns: one m a row, and all m distinct (R >= C)
+SLAB_CASES = [(kind, rows, chunks) for kind in ("lane_gather", "sublane_gather", "two_stage_gather")
+              for rows, chunks in SLAB_SHAPES] + [("two_stage_gather_all_equal", 8, 3),
+                                                  ("two_stage_gather_all_distinct", 256, 2)]
 
 
 @pytest.mark.parametrize("t,w,n", ROW_SHAPES)
@@ -117,8 +133,7 @@ def test_row_and_col_gathers_equal_pallas_bodies(kind, t, w, n):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("rows,chunks", SLAB_SHAPES)
-@pytest.mark.parametrize("kind", ["lane_gather", "sublane_gather", "two_stage_gather"])
+@pytest.mark.parametrize("kind,rows,chunks", SLAB_CASES)
 def test_slab_gathers_equal_pallas_bodies(kind, rows, chunks):
     want, got = _slab_case(kind, rows, chunks, np.random.default_rng(rows))
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -233,12 +248,32 @@ def test_gather_scatter_kernels_match_plain_on_card():
         ix = torch.as_tensor(_indices(rng, (n,), t)).cuda()
         cases += [(gs.row_gather, gs.row_gather_ref, (table, ix)),
                   (gs.col_gather, gs.col_gather_ref, (table.T.contiguous(), ix))]
+    # col_gather's edges: W = 1, 3, 8 and 300 (bands of 32 columns, the
+    # last of 12); N a multiple of 4 (float4 stores) or not, under one
+    # block of 256 points; T off the transpose's 32-row tile
+    for t, w, n in [(77, 1, 1000), (77, 1, 5), (1000, 3, 64), (4099, 8, 4099), (4099, 8, 200), (45, 300, 1003),
+                    (45, 300, 512)]:
+        table_t = torch.as_tensor(rng.standard_normal((w, t)).astype(np.float32)).cuda()
+        cases.append((gs.col_gather, gs.col_gather_ref, (table_t, torch.as_tensor(_indices(rng, (n,), t)).cuda())))
     for rows, chunks in SLAB_SHAPES + [(4096, 5)]:
         tab = torch.as_tensor(rng.standard_normal((rows, 128)).astype(np.float32)).cuda()
         ix = torch.as_tensor(_indices(rng, (chunks, rows, 128), rows)).cuda()
         cases += [(gs.lane_gather, gs.lane_gather_ref, (tab, ix[0] % 128)),
                   (gs.sublane_gather, gs.sublane_gather_ref, (tab, ix[0].contiguous())),
                   (gs.two_stage_gather, gs.two_stage_gather_ref, (tab, ix))]
+    # two_stage_gather's edges: C = 128, 1, 37 and 150 (scalar paths),
+    # 1000 (above the block's 256 threads) and 2500 (three pieces of 1024
+    # columns); K = 1 and 36; uniform, all-equal and all-distinct m (R >= C);
+    # an index view 4 bytes off a 16-byte boundary (scalar path at C = 128)
+    for k, r, c in [(36, 256, 128), (1, 128, 128), (2, 50, 1), (3, 40, 37), (2, 150, 150), (2, 1000, 1000),
+                    (1, 2500, 2500)]:
+        tab = torch.as_tensor(rng.standard_normal((r, c)).astype(np.float32)).cuda()
+        for kind in ("two_stage_gather", "two_stage_gather_all_equal", "two_stage_gather_all_distinct"):
+            ix = torch.as_tensor(_two_stage_indices(kind, rng, (k, r, c))).cuda()
+            cases.append((gs.two_stage_gather, gs.two_stage_gather_ref, (tab, ix)))
+    tab = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32)).cuda()
+    buf = torch.as_tensor(_indices(rng, (2 * 64 * 128 + 1,), 64)).cuda()
+    cases.append((gs.two_stage_gather, gs.two_stage_gather_ref, (tab, buf[1:].view(2, 64, 128))))
     ix = torch.as_tensor(_indices(rng, (1000,), 64)).cuda()
     cases += [(gs.row_gather, gs.row_gather_ref, (view, ix)) for view in _offset_views("cuda")]
     for fn, ref, a in cases:
