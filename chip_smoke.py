@@ -24,8 +24,15 @@ In order:
      two_stage_gather, cp_fwd_gather) run at their probe scripts' default
      shapes against their plain versions and library calls, col_gather
      also on an odd N and on one row, two_stage_gather also on rows of
-     all-distinct m and of one value (each kernel's device ms beside its
-     bound and its share of it);
+     all-distinct m and of one value, row_scatter_add's four variants also
+     exact at W = 8, 3, 32, on an update view 4 bytes off and on one row
+     (each variant's device ms and share of the bound, the zero fill
+     alone), sublane_gather also on every index equal, as an empty kernel
+     of its grid, through its band path at the probe's slab and that
+     path's band copy alone, and on the edges of its plan (rows off the TMA
+     boxes, 136 and 4 columns, 8192 rows, a view 4 bytes off, and the band
+     path's own shapes, timed against the element path) (each kernel's
+     device ms beside its bound and its share of it);
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
      just before and read just after: each kernel of the path must have
@@ -99,26 +106,9 @@ def _event_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    """Device ms per call with no host time in the way: ``calls`` calls
-    captured in one CUDA graph (after a warm-up call), replayed ``replays``
-    times between two CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (calls * replays)
-    del graph
-    torch.cuda.empty_cache()
-    return ms
+    from loner_tpu_torch.probes.timing import graph_ms
+
+    return graph_ms(fn, calls, replays)
 
 
 def _bound(nbytes: float, flops: float):
@@ -436,7 +426,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     calls after a warm-up (the plain versions over 20). Bounds: bytes, each
     input read once and each output written once (the work is a load and a
     store, or an add, per element)."""
-    from loner_tpu_torch.probes import bench_dyngather, bench_gather2, bench_pallas_scatter
+    from loner_tpu_torch.probes import bench_dyngather, bench_gather2, bench_pallas_scatter, kernel_variants
 
     dev = pts.device
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -463,12 +453,25 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     int_idx = (torch.randperm(n, generator=gen, device=dev) % t).to(torch.int32)
     int_upd = torch.randint(-4, 5, (n, w), generator=gen, device=dev).float()
     int_exact = torch.zeros((t, w), device=dev).index_add_(0, int_idx.long(), int_upd)
+    # the same on the edges: W = 8 and 32 (vector path), 3 and an update view
+    # 4 bytes off a 16-byte boundary (scalar path), and one row
+    edges = {}
+    for ew, en, off in ((8, n, 0), (3, n, 0), (32, n // 4, 0), (w, n, 1), (w, 1, 0)):
+        buf = torch.randint(-4, 5, (en * ew + off,), generator=gen, device=dev).float()
+        e_upd = buf[off:].view(en, ew)
+        e_idx = int_idx[:en].contiguous()
+        edges[(ew, en, off)] = (e_idx, e_upd, torch.zeros((t, ew), device=dev).index_add_(0, e_idx.long(), e_upd))
     errs = {}
     for nshadow, acc, label in bench_pallas_scatter.VARIANTS:
         out = gs.row_scatter_add(int_idx, int_upd, t, nshadow, acc)
         plain = gs.row_scatter_add_ref(int_idx, int_upd, t, nshadow, acc)
         if not (torch.equal(out, int_exact) and torch.equal(out, plain)):
             raise AssertionError(f"{label}: not exact on updates whose every partial sum is exact")
+        for (ew, en, off), (e_idx, e_upd, e_exact) in edges.items():
+            out = gs.row_scatter_add(e_idx, e_upd, t, nshadow, acc)
+            plain = gs.row_scatter_add_ref(e_idx, e_upd, t, nshadow, acc)
+            if not (torch.equal(out, e_exact) and torch.equal(out, plain)):
+                raise AssertionError(f"{label}: not exact at W={ew}, N={en}, a view {off} floats in")
         out = gs.row_scatter_add(idx, upd, t, nshadow, acc)
         plain = gs.row_scatter_add_ref(idx, upd, t, nshadow, acc)
         bound = 1e-6 if acc == torch.float32 else 1e-2
@@ -479,16 +482,20 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
         call = lambda: gs.row_scatter_add(idx, upd, t, nshadow, acc)  # noqa: E731
         errs[label] = {"vs_plain": e_plain, "vs_index_add": e_lib, "ms": _event_ms(call, 200, 5),
                        "graph_ms": _graph_ms(call)}
-    details["row_scatter_add"] = {"scale": scale, "variants": errs}
+    bound = _bound(4 * n + 4 * n * w + 4 * t * w, n * w)
+    fill_ms = _graph_ms(lambda: torch.zeros((t, w), device=dev))
+    details["row_scatter_add"] = {"scale": scale, "variants": errs, "zero_fill_graph_ms": fill_ms,
+                                  "edges_exact": [list(k) for k in edges]}
     print("row_scatter_add variants: " + "; ".join(
-        f"{k}: {v['ms']:.4f} ms, device {v['graph_ms']:.4f} ms, err vs plain {v['vs_plain']:.3e}, "
-        f"vs index_add_ {v['vs_index_add']:.3e}" for k, v in errs.items()) + f" (largest entry {scale:.4f})")
+        f"{k}: {v['ms']:.4f} ms, device {v['graph_ms']:.4f} ms ({bound[0] / v['graph_ms']:.0%} of the bound), "
+        f"err vs plain {v['vs_plain']:.3e}, vs index_add_ {v['vs_index_add']:.3e}" for k, v in errs.items())
+        + f" (largest entry {scale:.4f}); the zero fill alone {fill_ms:.4f} ms; exact at (W, N, offset) "
+          f"{sorted(edges)}", flush=True)
     ms, plain_ms, lib_ms = timed(lambda: gs.row_scatter_add(idx, upd, t), lambda: gs.row_scatter_add_ref(idx, upd, t),
                                  library, "row_scatter_add")
     entries.append(_entry("row_scatter_add", "gather_scatter.cu", "scripts/bench_pallas_scatter.py:45",
-                          errs[bench_pallas_scatter.VARIANTS[0][2]]["vs_plain"], ms, plain_ms,
-                          _bound(4 * n + 4 * n * w + 4 * t * w, n * w), lib_ms))
-    del idx, upd, idx64, exact, int_idx, int_upd, int_exact
+                          errs[bench_pallas_scatter.VARIANTS[0][2]]["vs_plain"], ms, plain_ms, bound, lib_ms))
+    del idx, upd, idx64, exact, int_idx, int_upd, int_exact, edges
 
     def variant_ms(name, fn, plain, library, tab, variants):
         """{variant: device ms} of ``fn(tab, idx)`` on each variant's
@@ -552,6 +559,44 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     idx64 = idx.long()
     gather_entry("sublane_gather", lambda: gs.sublane_gather(tab, idx), lambda: gs.sublane_gather_ref(tab, idx),
                  lambda: torch.gather(tab, 0, idx64), 3 * 4 * r * 128, "scripts/bench_dyngather.py:56")
+    # the largest slab's parts: every index equal (lookups nearly free), an
+    # empty kernel of the same grid (the launch floor); and the band path
+    # there, which the plan does not take (clusters of 8, a lookup a copied
+    # band row): its time and its band copy alone
+    plan, band = gs.sublane_gather_plan(r, 128, tab.data_ptr() % 16 == 0), gs.band_plan(r, 128)
+    parts = variant_ms("sublane_gather", gs.sublane_gather, gs.sublane_gather_ref,
+                       lambda i: torch.gather(tab, 0, i.long()), tab, {"all_equal": torch.full_like(idx, r // 2)})
+    parts["empty_kernel"] = _graph_ms(lambda: kernel_variants.empty(plan))
+    out = torch.empty_like(tab)
+    kernel_variants.band_gather(tab, idx, out, band)
+    if not torch.equal(out, torch.gather(tab, 0, idx64)):
+        raise AssertionError(f"sublane_gather's band path disagrees with torch.gather at rows={r}")
+    parts["band_path"] = _graph_ms(lambda: kernel_variants.band_gather(tab, idx, out, band))
+    parts["band_copy"] = _graph_ms(lambda: kernel_variants.band_copy(tab, band))
+    details["sublane_gather_variants"] = {"plan": plan._asdict(), "band_plan": band._asdict(), **parts}
+    print(f"sublane_gather at rows={r}: {plan}; device ms all-equal {parts['all_equal']:.4f}, empty kernel "
+          f"{parts['empty_kernel']:.4f}; the band path ({band}) {parts['band_path']:.4f}, its band copy alone "
+          f"{parts['band_copy']:.4f}", flush=True)
+    # the edges: rows off the 256-row boxes, 136 columns (17 bands), 4
+    # columns, a band beyond shared memory, a table view 4 bytes off (all
+    # on the element path); 1024 x 512 (the band path, clusters of 2) and
+    # 512 x 1024 (clusters of 1), each also against the element path
+    band_ms = {}
+    for er, ec, off in ((4099, 128, 0), (512, 136, 0), (512, 4, 0), (8192, 128, 0), (512, 128, 1), (1024, 512, 0),
+                        (512, 1024, 0)):
+        e_tab = torch.randn((er * ec + off,), generator=gen, device=dev)[off:].view(er, ec)
+        e_idx = torch.randint(0, er, (er, ec), generator=gen, device=dev, dtype=torch.int32)
+        got = gs.sublane_gather(e_tab, e_idx)
+        lib_out = torch.gather(e_tab, 0, e_idx.long())
+        if not (torch.equal(got, gs.sublane_gather_ref(e_tab, e_idx)) and torch.equal(got, lib_out)):
+            raise AssertionError(f"sublane_gather disagrees at ({er}, {ec}), a view {off} floats in")
+        e_plan = gs.sublane_gather_plan(er, ec, e_tab.data_ptr() % 16 == 0)
+        if e_plan.path == "band":
+            band_ms[f"{er}x{ec}"] = {"band": _graph_ms(lambda: gs.sublane_gather(e_tab, e_idx)),
+                                     "element": _graph_ms(lambda: kernel_variants.element_gather(e_tab, e_idx, got))}
+    details["sublane_gather_band_shapes"] = band_ms
+    print(f"sublane_gather on its band path's shapes, device ms: {band_ms}", flush=True)
+    del got, lib_out, e_tab, e_idx, out
     r, chunks = bench_dyngather.R, bench_dyngather.CHUNKS
     tab = torch.randn((r, 128), generator=gen, device=dev)
     idxs = torch.randint(0, r, (chunks, r, 128), generator=gen, device=dev, dtype=torch.int32)

@@ -20,14 +20,26 @@
 // loads and output stores are contiguous; only the table reads are random.
 //
 //  * row_scatter_add: the TPU kernel carries a VMEM accumulator across its
-//    sequential grid; blocks here run in parallel, so one thread per (row,
-//    column) of the updates adds its value into shadow copy `row % nshadow`
-//    of a zeroed (nshadow, T, W) accumulator with atomicAdd, in f32 or in
-//    bf16 (the update rounded to bf16 first). Shadow copies spread the
-//    atomics to a hot row over more addresses. A second kernel sums the
-//    copies in order, in the accumulator's type, and writes f32; with one
+//    sequential grid; blocks here run in parallel, so the updates are added
+//    into shadow copy `row % nshadow` of a zeroed (nshadow, T, W)
+//    accumulator with atomics, in f32 or in bf16 (the update rounded to
+//    bf16 first). Shadow copies spread the atomics to a hot row over more
+//    addresses. A second kernel sums the copies in order, in the
+//    accumulator's type, four elements a thread, and writes f32; with one
 //    f32 copy the wrapper hands the zeroed output over as the accumulator
-//    and launches only the first.
+//    and launches only the first. The first design, a thread and a scalar
+//    atomic per element with two runtime divisions, took 11.6 us of its
+//    13.8 (the fill the rest) at the probe's 262,144 rows of 16 f32, and
+//    as much with plain stores for its atomics: 4.2M threads, not the
+//    atomics, set its pace. Where W % 4 == 0 and upd is 16-byte aligned (the
+//    vector path) a thread takes a 16-byte piece of a row, from a 2-D block
+//    (pieces x rows, so no division), streams it as one float4 and adds it
+//    with one vector atomic (16 bytes of f32, or 8 bytes of four bf16 each
+//    rounded as the scalar path rounds): 8.3 us at the probe's shape, 6.5
+//    with stores, so the atomics now cost about 1.8 us over the streaming
+//    of the 16.8 MB of updates. Other W, and unaligned views, keep the
+//    first design (the scalar path). Worst case: many rows on one entry
+//    serialise their atomics there, as in either design.
 //  * row_gather: one thread per 16-byte piece of an output row (a row of W
 //    f32 moves as W/4 float4s when W is a multiple of 4 and the table starts
 //    on a 16-byte boundary, which the caller decides, else as floats), so
@@ -72,7 +84,28 @@
 //    bound both designs: 12M of them at the probe's shape take 0.086 ms of
 //    the 0.107. Worst case: a row whose m are all distinct reads C values,
 //    one per element, as the first design did.
-//  * lane and sublane gathers: one thread per output element.
+//  * lane_gather: one thread per output element.
+//  * sublane_gather, out[i, j] = tab[idx[i, j], j]: one thread per element
+//    (the element path) is bound by its lookups, one 32-byte L2 sector
+//    each: at the probe's (4096, 128) slab, 5.6 us on uniform draws, 2.5
+//    with every index equal, 2.0 for an empty kernel of its grid. The band
+//    path holds a band of B = 8 columns (one sector of a row) of tab in
+//    the shared memory of each CTA of a thread-block cluster: CTA r of the
+//    cluster copies boxes r, r + cluster, ... of the band (256 rows each)
+//    from L2 with TMA and multicasts each to the whole cluster, then each
+//    CTA serves its split of the rows' lookups from shared memory. Every
+//    SM still takes in the whole band, rows x 32 bytes, as one 32-byte
+//    request a row, and the card delivers those no faster than the element
+//    path's random lookups (about 0.4-0.7 a clock an SM, whether by
+//    multicast, a plain TMA copy, cp.async or a slice pushed between the
+//    CTAs of a cluster; PERF.md section 6). So the band path pays only
+//    where a CTA makes at least 4 lookups per band row it copies (a cluster
+//    of 1 or 2, 43 bands or more) on at most 1024 rows:
+//    sublane_gather_plan in ops/gather_scatter.py picks it there, and the
+//    element path everywhere else, the probe's slabs among them (there the
+//    band path takes 9-11 us). It needs cols a multiple of B and tab
+//    16-byte aligned (TMA). Worst case of the band path: a band copy of
+//    1024 rows for one cluster's lookups.
 //
 // Indices are in range by construction in every probe; the kernels do not
 // check them (the plain CPU versions, torch.gather and indexing, raise on a
@@ -84,6 +117,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "tma.cuh"
 
 #define GS_THREADS 256
 
@@ -105,7 +140,19 @@ static unsigned int blocks_for(long long n) { return (unsigned int)((n + GS_THRE
 __device__ __forceinline__ void add_to(float* a, float v) { atomicAdd(a, v); }
 __device__ __forceinline__ void add_to(__nv_bfloat16* a, float v) { atomicAdd(a, __float2bfloat16_rn(v)); }
 
-// thread e adds upd[e] (row i = e / w, column c) into shadow i % nshadow
+// four neighbouring elements in one vector atomic (global memory, sm_90):
+// f32 as one 16-byte add; bf16 rounded first, as the scalar path does, then
+// one 8-byte add of four bf16s, each sum rounded to bf16
+__device__ __forceinline__ void add4(float* a, float4 v) { atomicAdd((float4*)a, v); }
+__device__ __forceinline__ void add4(__nv_bfloat16* a, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  asm volatile("red.global.add.noftz.v2.bf16x2 [%0], {%1, %2};" ::"l"(__cvta_generic_to_global(a)),
+               "r"(*(const u32*)&lo), "r"(*(const u32*)&hi)
+               : "memory");
+}
+
+// scalar path (W % 4 != 0, or upd not 16-byte aligned): thread e adds
+// upd[e] (row i = e / w, column c) into shadow i % nshadow
 template <typename Acc>
 __global__ void row_scatter_add_kernel(const int* __restrict__ idx, const float* __restrict__ upd,
                                        Acc* __restrict__ acc, u32 n, u32 t, u32 w, u32 nshadow) {
@@ -115,22 +162,55 @@ __global__ void row_scatter_add_kernel(const int* __restrict__ idx, const float*
   add_to(acc + ((i % nshadow) * t + (u32)idx[i]) * w + c, upd[e]);
 }
 
-// out = acc[0] + acc[1] + ... in that order; in bf16 every partial sum is
-// rounded to bf16, as a sum of bf16 arrays is
-__global__ void shadow_sum_f32(const float* __restrict__ acc, float* __restrict__ out, u32 tw, u32 nshadow) {
-  THREAD_ELEMENT(e, tw);
-  float tot = acc[e];
-  for (u32 s = 1; s < nshadow; ++s) tot = __fadd_rn(tot, acc[s * tw + e]);
-  out[e] = tot;
+// vector path: thread (x, y) of a (bx, by) block adds the 16-byte pieces x,
+// x + bx, ... of row i = by blockIdx.x + y (wv pieces a row) into shadow
+// i % nshadow; no division per element, upd streamed as float4s
+template <typename Acc>
+__global__ void row_scatter_add_vec_kernel(const int* __restrict__ idx, const float4* __restrict__ upd,
+                                           Acc* __restrict__ acc, u32 n, u32 t, u32 wv, u32 nshadow) {
+  const u32 i = blockIdx.x * blockDim.y + threadIdx.y;
+  if (i >= n) return;
+  const u32 s = (nshadow & (nshadow - 1)) ? i % nshadow : i & (nshadow - 1);
+  Acc* row = acc + (s * t + (u32)__ldg(idx + i)) * wv * 4;
+  const float4* u = upd + i * wv;
+  for (u32 q = threadIdx.x; q < wv; q += blockDim.x) add4(row + 4 * q, __ldcs(u + q));
 }
 
-__global__ void shadow_sum_bf16(const __nv_bfloat16* __restrict__ acc, float* __restrict__ out, u32 tw,
-                                u32 nshadow) {
-  THREAD_ELEMENT(e, tw);
-  float tot = __bfloat162float(acc[e]);
-  for (u32 s = 1; s < nshadow; ++s)
-    tot = __bfloat162float(__float2bfloat16_rn(__fadd_rn(tot, __bfloat162float(acc[s * tw + e]))));
-  out[e] = tot;
+// out = acc[0] + acc[1] + ... in that order; in bf16 every partial sum is
+// rounded to bf16, as a sum of bf16 arrays is. V elements a thread (4: tw %
+// 4 == 0, float4 loads and stores, 8-byte bf16 loads)
+__device__ __forceinline__ float rounded(float x, const float*) { return x; }
+__device__ __forceinline__ float rounded(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void load_acc(const float* p, float (&x)[1]) { x[0] = __ldcs(p); }
+__device__ __forceinline__ void load_acc(const __nv_bfloat16* p, float (&x)[1]) { x[0] = __bfloat162float(*p); }
+__device__ __forceinline__ void load_acc(const float* p, float (&x)[4]) {
+  const float4 v = __ldcs((const float4*)p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load_acc(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = __ldcs((const uint2*)p);
+  const float2 lo = __bfloat1622float2(*(const __nv_bfloat162*)&v.x);
+  const float2 hi = __bfloat1622float2(*(const __nv_bfloat162*)&v.y);
+  x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+}
+__device__ __forceinline__ void store_out(float* p, const float (&x)[1]) { p[0] = x[0]; }
+__device__ __forceinline__ void store_out(float* p, const float (&x)[4]) {
+  *(float4*)p = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+template <typename Acc, int V>
+__global__ void shadow_sum_kernel(const Acc* __restrict__ acc, float* __restrict__ out, u32 tw, u32 nshadow) {
+  THREAD_ELEMENT(e, tw / V);
+  float tot[V], x[V];
+  load_acc(acc + V * e, tot);
+  for (u32 s = 1; s < nshadow; ++s) {
+    load_acc(acc + s * tw + V * e, x);
+#pragma unroll
+    for (int k = 0; k < V; ++k) tot[k] = rounded(__fadd_rn(tot[k], x[k]), acc);
+  }
+  store_out(out + V * e, tot);
 }
 
 // ---------------------------------------------------------------------------
@@ -221,11 +301,59 @@ __global__ void lane_gather_kernel(const float* __restrict__ tab, const int* __r
   out[e] = tab[e - e % cols + (u32)idx[e]];
 }
 
-// out[i, j] = tab[idx[i, j], j]
+// out[i, j] = tab[idx[i, j], j], one thread per element (the general path)
 __global__ void sublane_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                                       float* __restrict__ out, u32 total, u32 cols) {
   THREAD_ELEMENT(e, total);
   out[e] = tab[(u32)idx[e] * cols + e % cols];
+}
+
+#define SG_THREADS 256
+#define SG_BOX_ROWS 256  // rows of a TMA box, the most a box dimension holds
+#define SG_PREFETCH 16   // elements a thread reads the indices of while the band arrives
+#define SG_MAX_SMEM 232448
+
+// The band path: the CTAs of cluster y (blockIdx.x = rank r of gridDim.x)
+// take columns c0 = B y .. c0 + B of out. Each holds the whole band of tab
+// (nboxes boxes of box_rows rows x B floats) in shared memory: CTA r copies
+// boxes r, r + gridDim.x, ... from L2 once and multicasts each to the whole
+// cluster, so the band leaves L2 once a cluster. While it arrives a thread
+// reads the indices of its first elements of the CTA's rows r0 .. r0 +
+// split_rows; then every lookup is a shared-memory read (a bank conflict of
+// 2-3 ways on uniform draws).
+template <int B>
+__global__ void __launch_bounds__(SG_THREADS)
+    sublane_band_kernel(const __grid_constant__ CUtensorMap map, const int* __restrict__ idx,
+                        float* __restrict__ out, u32 rows, u32 cols, u32 box_rows, u32 nboxes, u32 split_rows) {
+  extern __shared__ unsigned char sg_raw[];
+  const u32 raw = smem_u32(sg_raw), base = (raw + 127) & ~127u;  // TMA writes 128-byte aligned boxes
+  const float* band = (const float*)(sg_raw + (base - raw));
+  const u32 box_bytes = box_rows * B * 4, bar = base + nboxes * box_bytes;
+  const u32 rank = blockIdx.x, nct = gridDim.x, c0 = blockIdx.y * B;
+  if (threadIdx.x == 0) mbar_init_expect(bar, nboxes * box_bytes);
+  cluster_sync();  // every CTA's barrier armed before a copy can land in it
+  if (threadIdx.x == 0)
+    for (u32 k = rank; k < nboxes; k += nct)
+      tma_load_multicast(base + k * box_bytes, &map, c0, k * box_rows, bar, (unsigned short)((1u << nct) - 1));
+  const u32 r0 = min(rows, rank * split_rows), n_el = (min(rows, r0 + split_rows) - r0) * B;
+  const u32 j = threadIdx.x % B;  // SG_THREADS % B == 0: a thread keeps its column
+  const int* ib = idx + r0 * cols + c0 + j;
+  float* ob = out + r0 * cols + c0 + j;
+  int ix[SG_PREFETCH];
+#pragma unroll
+  for (int k = 0; k < SG_PREFETCH; ++k) {
+    const u32 e = threadIdx.x + k * SG_THREADS;
+    if (e < n_el) ix[k] = __ldcs(ib + e / B * cols);
+  }
+  mbar_wait(bar, 0);
+#pragma unroll
+  for (int k = 0; k < SG_PREFETCH; ++k) {
+    const u32 e = threadIdx.x + k * SG_THREADS;
+    if (e < n_el) __stcs(ob + e / B * cols, band[(u32)ix[k] * B + j]);
+  }
+  for (u32 e = threadIdx.x + SG_PREFETCH * SG_THREADS; e < n_el; e += SG_THREADS)
+    __stcs(ob + e / B * cols, band[(u32)__ldcs(ib + e / B * cols) * B + j]);
+  cluster_sync();  // no CTA leaves while a copy it issued may be in flight
 }
 
 #define TS_WARPS 8     // warps a block, a row each
@@ -376,31 +504,56 @@ __global__ void two_stage_long_kernel(const float* __restrict__ tab, const int* 
 
 #define STREAM(s) (cudaStream_t)(s)
 
+static bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
+// vec: the vector path; the caller sets it only when w is a multiple of 4 and
+// upd is 16-byte aligned (acc comes from the allocator)
 extern "C" int loner_row_scatter_add(const int* idx, const float* upd, void* acc, long long n,
-                                     long long t, long long w, int nshadow, int acc_bf16,
+                                     long long t, long long w, int nshadow, int acc_bf16, int vec,
                                      void* stream) {
-  if (nshadow < 1 || w < 1 || t < 1 || !fits32(n * w) || !fits32((unsigned long long)nshadow * t * w))
+  if (nshadow < 1 || w < 1 || t < 1 || !fits32(n * w) || !fits32((unsigned long long)nshadow * t * w) ||
+      (vec && (w % 4 || !aligned16(upd) || !aligned16(acc))))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  if (acc_bf16)
-    row_scatter_add_kernel<<<blocks_for(n * w), GS_THREADS, 0, STREAM(stream)>>>(
-        idx, upd, (__nv_bfloat16*)acc, (u32)n, (u32)t, (u32)w, (u32)nshadow);
-  else
-    row_scatter_add_kernel<<<blocks_for(n * w), GS_THREADS, 0, STREAM(stream)>>>(
-        idx, upd, (float*)acc, (u32)n, (u32)t, (u32)w, (u32)nshadow);
+  const cudaStream_t s = STREAM(stream);
+  if (vec) {
+    const u32 wv = (u32)(w / 4), bx = wv < GS_THREADS ? wv : GS_THREADS, by = GS_THREADS / bx;
+    const dim3 block(bx, by);
+    const unsigned int blocks = (unsigned int)((n + by - 1) / by);
+    if (acc_bf16)
+      row_scatter_add_vec_kernel<<<blocks, block, 0, s>>>(idx, (const float4*)upd, (__nv_bfloat16*)acc, (u32)n,
+                                                          (u32)t, wv, (u32)nshadow);
+    else
+      row_scatter_add_vec_kernel<<<blocks, block, 0, s>>>(idx, (const float4*)upd, (float*)acc, (u32)n, (u32)t,
+                                                          wv, (u32)nshadow);
+  } else if (acc_bf16) {
+    row_scatter_add_kernel<<<blocks_for(n * w), GS_THREADS, 0, s>>>(idx, upd, (__nv_bfloat16*)acc, (u32)n,
+                                                                     (u32)t, (u32)w, (u32)nshadow);
+  } else {
+    row_scatter_add_kernel<<<blocks_for(n * w), GS_THREADS, 0, s>>>(idx, upd, (float*)acc, (u32)n, (u32)t,
+                                                                     (u32)w, (u32)nshadow);
+  }
   return (int)cudaGetLastError();
 }
 
+// four elements a thread when tw % 4 == 0 (acc and out come from the allocator)
 extern "C" int loner_shadow_sum(const void* acc, float* out, long long tw, int nshadow, int acc_bf16,
                                 void* stream) {
   if (nshadow < 1 || !fits32((unsigned long long)tw * nshadow)) return (int)cudaErrorInvalidValue;
   if (tw <= 0) return 0;
-  if (acc_bf16)
-    shadow_sum_bf16<<<blocks_for(tw), GS_THREADS, 0, STREAM(stream)>>>((const __nv_bfloat16*)acc, out,
-                                                                        (u32)tw, (u32)nshadow);
+  const cudaStream_t s = STREAM(stream);
+  const bool vec = tw % 4 == 0 && aligned16(acc) && aligned16(out);
+  const unsigned int blocks = blocks_for(vec ? tw / 4 : tw);
+  if (acc_bf16 && vec)
+    shadow_sum_kernel<__nv_bfloat16, 4><<<blocks, GS_THREADS, 0, s>>>((const __nv_bfloat16*)acc, out, (u32)tw,
+                                                                      (u32)nshadow);
+  else if (acc_bf16)
+    shadow_sum_kernel<__nv_bfloat16, 1><<<blocks, GS_THREADS, 0, s>>>((const __nv_bfloat16*)acc, out, (u32)tw,
+                                                                      (u32)nshadow);
+  else if (vec)
+    shadow_sum_kernel<float, 4><<<blocks, GS_THREADS, 0, s>>>((const float*)acc, out, (u32)tw, (u32)nshadow);
   else
-    shadow_sum_f32<<<blocks_for(tw), GS_THREADS, 0, STREAM(stream)>>>((const float*)acc, out, (u32)tw,
-                                                                       (u32)nshadow);
+    shadow_sum_kernel<float, 1><<<blocks, GS_THREADS, 0, s>>>((const float*)acc, out, (u32)tw, (u32)nshadow);
   return (int)cudaGetLastError();
 }
 
@@ -420,8 +573,6 @@ extern "C" int loner_row_gather(const float* table, const int* idx, float* out, 
                                                                              (u32)wv);
   return (int)cudaGetLastError();
 }
-
-static bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
 
 // tt: the caller's (t, w4) scratch, w4 = w rounded up to a multiple of 4
 extern "C" int loner_col_gather(const float* table_t, const int* idx, float* tt, float* out, long long n,
@@ -455,13 +606,59 @@ extern "C" int loner_lane_gather(const float* tab, const int* idx, float* out, l
   return (int)cudaGetLastError();
 }
 
+// rows of a TMA box and bytes of shared memory of the band path, as
+// sublane_gather_plan computes them: whole boxes, a 128-byte alignment pad
+// and the barrier
+static u32 band_box_rows(long long rows) {
+  return rows >= SG_BOX_ROWS ? SG_BOX_ROWS : rows > 8 ? (u32)((rows + 7) / 8 * 8) : 8;
+}
+static long long band_smem(long long rows, int band) {
+  const long long box = band_box_rows(rows);
+  return 128 + (rows + box - 1) / box * box * band * 4 + 8;
+}
+
+template <int B>
+static int launch_band(const float* tab, const int* idx, float* out, long long rows, long long cols, int cluster,
+                       cudaStream_t s) {
+  CUtensorMap map;
+  const u32 box = band_box_rows(rows);
+  int rc = encode_f32_map(&map, tab, rows, cols, box, B);
+  if (rc) return rc;
+  const long long smem = band_smem(rows, B);
+  cudaError_t e = cudaFuncSetAttribute(sublane_band_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)cluster, (unsigned int)(cols / B));
+  cfg.blockDim = dim3(SG_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned int)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const u32 nboxes = (u32)((rows + box - 1) / box), split = (u32)((rows + cluster - 1) / cluster);
+  e = cudaLaunchKernelEx(&cfg, sublane_band_kernel<B>, map, idx, out, (u32)rows, (u32)cols, box, nboxes, split);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// band 0: one thread per element; band 4 or 8: the band path with `cluster`
+// CTAs a band, which needs cols a multiple of the band, tab 16-byte aligned
+// and the band within a block's shared memory (sublane_gather_plan)
 extern "C" int loner_sublane_gather(const float* tab, const int* idx, float* out, long long rows,
-                                    long long cols, void* stream) {
+                                    long long cols, int band, int cluster, void* stream) {
   const long long total = rows * cols;
   if (!fits32(total)) return (int)cudaErrorInvalidValue;
+  if (band && (!(band == 4 || band == 8) || cols % band || cols / band > 65535 || !aligned16(tab) ||
+               cluster < 1 || cluster > 8 || cluster > rows || band_smem(rows, band) > SG_MAX_SMEM))
+    return (int)cudaErrorInvalidValue;
   if (total <= 0) return 0;
-  sublane_gather_kernel<<<blocks_for(total), GS_THREADS, 0, STREAM(stream)>>>(tab, idx, out, (u32)total,
-                                                                               (u32)cols);
+  const cudaStream_t s = STREAM(stream);
+  if (band == 8) return launch_band<8>(tab, idx, out, rows, cols, cluster, s);
+  if (band == 4) return launch_band<4>(tab, idx, out, rows, cols, cluster, s);
+  sublane_gather_kernel<<<blocks_for(total), GS_THREADS, 0, s>>>(tab, idx, out, (u32)total, (u32)cols);
   return (int)cudaGetLastError();
 }
 

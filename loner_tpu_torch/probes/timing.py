@@ -42,6 +42,29 @@ def chained_ms(chain: Callable[[], object], device: torch.device, k: int):
     return time_ms(run, device, iters=1, warmup=1) / k, out["result"]
 
 
+def graph_ms(fn: Callable[[], object], calls: int = 20, replays: int = 10) -> float:
+    """Device ms per call with no host time in the way: ``calls`` calls of
+    ``fn`` captured in one CUDA graph (after a warm-up call), replayed
+    ``replays`` times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def device_name(device: torch.device) -> str:
     """The card's name, or "cpu"."""
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

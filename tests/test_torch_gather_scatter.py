@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import torch_parity as tp
 from loner_tpu_torch.ops import gather_scatter as gs
+from loner_tpu_torch.ops import kernels
 
 # ---------------------------------------------------------------------------
 # P1: row scatter-add against the Pallas kernel in interpret mode
@@ -97,16 +98,30 @@ def _two_stage_indices(kind, rng, shape):
     return _indices(rng, shape, rows)
 
 
+def _sublane_inputs(kind, rows, rng):
+    """(tab, idx) of a sublane gather: 128 columns, or the column count a
+    ``_cols_<n>`` kind names; every index equal for ``_all_equal``; ``tab`` a
+    view 4 bytes past a 16-byte boundary for ``_offset_view``."""
+    cols = int(kind.split("_cols_")[1].split("_")[0]) if "_cols_" in kind else 128
+    tab = rng.standard_normal((rows, cols)).astype(np.float32)
+    ix = np.full((rows, cols), rows - 1, np.int32) if "_all_equal" in kind else _indices(rng, (rows, cols), rows)
+    t = torch.as_tensor(tab)
+    if "_offset_view" in kind:
+        t = torch.cat([torch.zeros(1), t.reshape(-1)])[1:].view(rows, cols)
+        assert t.data_ptr() % 16 == 4
+    return tab, ix, t
+
+
 def _slab_case(kind, rows, chunks, rng):
     tab = rng.standard_normal((rows, 128)).astype(np.float32)
     if kind == "lane_gather":  # k_lane of bench_honest, bench_dyngather, bench_gather2
         ix = _indices(rng, (rows, 128), 128)
         want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(ix), axis=1)
         return want, gs.lane_gather(torch.as_tensor(tab), torch.as_tensor(ix))
-    if kind == "sublane_gather":  # bench_dyngather.k_sub
-        ix = _indices(rng, (rows, 128), rows)
+    if kind.startswith("sublane_gather"):  # bench_dyngather.k_sub
+        tab, ix, t = _sublane_inputs(kind, rows, rng)
         want = jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(ix), axis=0)
-        return want, gs.sublane_gather(torch.as_tensor(tab), torch.as_tensor(ix))
+        return want, gs.sublane_gather(t, torch.as_tensor(ix))
     ix = _two_stage_indices(kind, rng, (chunks, rows, 128))  # bench_dyngather.k2, chunk by chunk
     outs = []
     for c in range(chunks):
@@ -123,6 +138,13 @@ SLAB_SHAPES = [(8, 3), (64, 2)]  # (rows, chunks of the two-stage lookup)
 SLAB_CASES = [(kind, rows, chunks) for kind in ("lane_gather", "sublane_gather", "two_stage_gather")
               for rows, chunks in SLAB_SHAPES] + [("two_stage_gather_all_equal", 8, 3),
                                                   ("two_stage_gather_all_distinct", 256, 2)]
+# the sublane gather's edges: rows off 256-row TMA boxes, columns that are
+# not 128 (136: 17 bands; 4: not a multiple of the band; 1024 and 512: the
+# band path's shapes), every index equal, and a table view 4 bytes off a
+# 16-byte boundary
+SLAB_CASES += [("sublane_gather", 4099, 1), ("sublane_gather_cols_136", 64, 1), ("sublane_gather_cols_4", 64, 1),
+               ("sublane_gather_all_equal", 512, 1), ("sublane_gather_offset_view", 64, 1),
+               ("sublane_gather_cols_1024", 64, 1), ("sublane_gather_cols_512", 1000, 1)]
 
 
 @pytest.mark.parametrize("t,w,n", ROW_SHAPES)
@@ -233,6 +255,109 @@ def test_row_gather_moves_float4s_only_from_an_aligned_table():
 
 
 # ---------------------------------------------------------------------------
+# kernel paths (plans)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [8, 512, 4096])
+def test_sublane_gather_plan_at_the_probe_slabs(rows):
+    """The probe's (rows, 128) slabs take the element path: the band path
+    there (16 bands of 8 columns, a cluster of 8 CTAs a band, 128 CTAs, each
+    holding the band's rows in whole 256-row boxes, rows rounded up to 8
+    below one box, with a 128-byte alignment pad and the 8-byte barrier)
+    makes one lookup per band row it copies, and is the slower."""
+    box = min(256, rows)
+    band = gs.band_plan(rows, 128)
+    assert band == gs.SublaneGatherPlan("band", 8, 8, 128, 128 + -(-rows // box) * box * 32 + 8)
+    assert gs.sublane_gather_plan(rows, 128, True) == gs.SublaneGatherPlan("element", 0, 1, rows // 2, 0)
+
+
+@pytest.mark.parametrize("rows,cols,cluster", [(1024, 512, 2), (512, 1024, 1), (1024, 1024, 1), (256, 4096, 1),
+                                               (1024, 344, 2), (3, 1024, 1)])
+def test_sublane_gather_plan_takes_the_band_path(rows, cols, cluster):
+    """At most 1024 rows, and a cluster of at most 2 CTAs a band of 8
+    columns (at least 4 lookups per copied band row): the band path."""
+    plan = gs.sublane_gather_plan(rows, cols, True)
+    assert plan == gs.band_plan(rows, cols)
+    assert (plan.path, plan.band, plan.cluster, plan.ctas) == ("band", 8, cluster, cols // 8 * cluster)
+
+
+def test_sublane_gather_band_path_fits_shared_memory():
+    taken = 0
+    for rows in (0, 1, 3, 7, 8, 9, 255, 256, 257, 1000, 1024, 1025, 4096, 4099, 7168, 8192):
+        for cols in (4, 8, 12, 16, 128, 136, 344, 512, 1000, 1024, 4096):
+            for band in (4, 8):
+                plan = gs.sublane_gather_plan(rows, cols, True, band)
+                if plan.path == "element":
+                    assert (cols % band or rows == 0 or rows > gs.SG_MAX_ROWS
+                            or band // gs.band_plan(rows, cols, band).cluster < 4)
+                    continue
+                taken += 1
+                assert plan.smem_bytes <= kernels.SMEM_BYTES
+                assert plan.smem_bytes >= rows * band * 4 + 136  # every row, the pad and the barrier
+                assert plan.band == band and cols % band == 0 and rows <= gs.SG_MAX_ROWS
+                assert 1 <= plan.cluster <= min(band // 4, rows) and plan.ctas == cols // band * plan.cluster
+    assert taken > 50
+
+
+@pytest.mark.parametrize("rows,cols,aligned", [(64, 4, True), (64, 12, True), (1024, 130, True), (2048, 1024, True),
+                                               (8192, 128, True), (1024, 336, True), (1024, 512, False)])
+def test_sublane_gather_plan_takes_the_element_path(rows, cols, aligned):
+    """Columns not a multiple of the band, more than 1024 rows (8192 rows
+    of 32 bytes would not fit in shared memory either), clusters of 3 or
+    more CTAs (336 columns: 42 bands), and a table that does not start on a
+    16-byte boundary (which TMA needs) take one thread per element."""
+    plan = gs.sublane_gather_plan(rows, cols, aligned)
+    assert plan == gs.SublaneGatherPlan("element", 0, 1, -(-rows * cols // 256), 0)
+
+
+def test_sublane_gather_plan_of_a_view_4_bytes_off():
+    _, _, view = _sublane_inputs("sublane_gather_offset_view_cols_1024", 64, np.random.default_rng(0))
+    assert gs.sublane_gather_plan(64, 1024, True).path == "band"
+    assert gs.sublane_gather_plan(*view.shape, view.data_ptr() % 16 == 0).path == "element"
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 32])
+def test_row_scatter_add_plan_takes_vector_atomics_on_whole_float4s(w):
+    buf = torch.zeros(64 * w + 4)
+    aligned, shifted = buf[:64 * w].view(64, w), buf[1:1 + 64 * w].view(64, w)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 4
+    assert gs.row_scatter_add_plan(w, aligned.data_ptr() % 16 == 0) == "vector"
+    assert gs.row_scatter_add_plan(w, shifted.data_ptr() % 16 == 0) == "scalar"  # a view 4 bytes off
+
+
+@pytest.mark.parametrize("w", [1, 3, 6, 17])
+def test_row_scatter_add_plan_takes_scalar_atomics_otherwise(w):
+    assert gs.row_scatter_add_plan(w, True) == "scalar"
+
+
+# W = 16 (the probe), 8, 3 (scalar path), 32; N = 1; an update view 4 bytes
+# off a 16-byte boundary
+SCATTER_EDGES = [(16, 1000, 0), (8, 1000, 0), (3, 1000, 0), (32, 1000, 0), (16, 1, 0), (16, 1000, 1)]
+
+
+def _scatter_edge(w, n, offset, rng, t=64, device="cpu", normal=False):
+    """(idx, upd, exact sum): small-integer updates, whose partial sums are
+    exact in bf16 while an entry takes at most 12 rows (or normal draws and
+    their float64 sum), as a view ``offset`` floats into its buffer."""
+    idx = _indices(rng, (n,), t) if n > 1 else np.array([t - 1], np.int32)
+    upd = (rng.standard_normal((n, w)) if normal else rng.integers(-4, 5, (n, w))).astype(np.float32)
+    exact = np.zeros((t, w), np.float64 if normal else np.float32)
+    np.add.at(exact, idx, upd)
+    buf = torch.zeros(n * w + offset, device=device)
+    buf[offset:] = torch.as_tensor(upd).reshape(-1)
+    return (torch.as_tensor(idx).to(device), buf[offset:].view(n, w), torch.as_tensor(exact).to(device))
+
+
+@pytest.mark.parametrize("w,n,offset", SCATTER_EDGES)
+@pytest.mark.parametrize("nshadow,acc", VARIANTS)
+def test_row_scatter_add_edge_shapes_give_exact_sums(w, n, offset, nshadow, acc):
+    idx, upd, exact = _scatter_edge(w, n, offset, np.random.default_rng(w + n + offset))
+    out = gs.row_scatter_add(idx, upd, exact.shape[0], nshadow, getattr(torch, acc))
+    assert torch.equal(out, exact)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -271,6 +396,26 @@ def test_gather_scatter_kernels_match_plain_on_card():
         for kind in ("two_stage_gather", "two_stage_gather_all_equal", "two_stage_gather_all_distinct"):
             ix = torch.as_tensor(_two_stage_indices(kind, rng, (k, r, c))).cuda()
             cases.append((gs.two_stage_gather, gs.two_stage_gather_ref, (tab, ix)))
+    # sublane_gather's edges, with the path the plan takes: the probe's
+    # slabs, rows off 256-row boxes, 136 columns (17 bands), 4 columns (not
+    # a multiple of the band), a band beyond shared memory (8192 rows x 32
+    # bytes), 2048 rows (element path); the band path in clusters of 2 (1024
+    # x 512, 1000 x 344: 43 bands, rows off the boxes) and of 1 (512 x 1024,
+    # 3 x 1024, one row); each also on every index equal, and on a table view
+    # 4 bytes off a 16-byte boundary (element path)
+    for rows, cols, path in [(8, 128, "element"), (512, 128, "element"), (4096, 128, "element"),
+                             (4099, 128, "element"), (512, 136, "element"), (512, 4, "element"),
+                             (8192, 128, "element"), (2048, 1024, "element"), (1024, 512, "band"),
+                             (1000, 344, "band"), (512, 1024, "band"), (3, 1024, "band"), (1, 128, "band")]:
+        for kind in ("sublane_gather", "sublane_gather_all_equal", "sublane_gather_offset_view"):
+            _, ix, tab = _sublane_inputs(f"{kind}_cols_{cols}", rows, rng)
+            tab, ix = tab.cuda(), torch.as_tensor(ix).cuda()
+            if kind.endswith("_offset_view"):
+                tab = torch.cat([torch.zeros(1, device="cuda"), tab.reshape(-1)])[1:].view(rows, cols)
+            want = "element" if kind.endswith("_offset_view") else path
+            assert gs.sublane_gather_plan(rows, cols, tab.data_ptr() % 16 == 0).path == want, (rows, cols, kind)
+            assert torch.equal(gs.sublane_gather(tab, ix), torch.gather(tab, 0, ix.long())), (rows, cols, kind)
+            cases.append((gs.sublane_gather, gs.sublane_gather_ref, (tab, ix)))
     tab = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32)).cuda()
     buf = torch.as_tensor(_indices(rng, (2 * 64 * 128 + 1,), 64)).cuda()
     cases.append((gs.two_stage_gather, gs.two_stage_gather_ref, (tab, buf[1:].view(2, 64, 128))))
@@ -288,9 +433,20 @@ def test_gather_scatter_kernels_match_plain_on_card():
     upd = torch.as_tensor(rng.integers(-4, 5, (t * k, 16)).astype(np.float32)).cuda()
     exact = torch.zeros((t, 16), device="cuda").index_add_(0, idx.long(), upd)
     for nshadow, acc in VARIANTS:
+        before = gs.row_scatter_add.launches
         out = gs.row_scatter_add(idx, upd, t, nshadow, getattr(torch, acc))
+        assert gs.row_scatter_add.launches == before + 1
         assert torch.equal(out, gs.row_scatter_add_ref(idx, upd, t, nshadow, getattr(torch, acc)))
         assert torch.equal(out, exact)
+    # the edges (vector and scalar paths, W = 16, 8, 3, 32, N = 1, an update
+    # view 4 bytes off): exact sums, 4096 rows into 512 (8 an entry)
+    for w, n, offset in SCATTER_EDGES:
+        eidx, eupd, eexact = _scatter_edge(w, 4096 if n > 1 else 1, offset, rng, 512, "cuda")
+        for nshadow, acc in VARIANTS:
+            out = gs.row_scatter_add(eidx, eupd, 512, nshadow, getattr(torch, acc))
+            assert torch.equal(out, gs.row_scatter_add_ref(eidx, eupd, 512, nshadow, getattr(torch, acc)))
+            assert torch.equal(out, eexact)
+            assert torch.equal(out, torch.zeros_like(out).index_add_(0, eidx.long(), eupd)), (w, n, offset, nshadow)
     # Normal draws at the probe's shapes (4 rows an entry): the atomics add
     # in a varying order. f32 within 1e-6 of the largest entry of its plain
     # version and of the exact sum; bf16, whose running sums round, within
@@ -300,11 +456,15 @@ def test_gather_scatter_kernels_match_plain_on_card():
     idx = torch.as_tensor(_indices(rng, (n,), t)).cuda()
     upd = torch.as_tensor(rng.standard_normal((n, 16)).astype(np.float32)).cuda()
     exact = torch.zeros((t, 16), dtype=torch.float64, device="cuda").index_add_(0, idx.long(), upd.double())
-    scale = float(exact.abs().max())
-    for nshadow, acc in VARIANTS:
-        out = gs.row_scatter_add(idx, upd, t, nshadow, getattr(torch, acc))
-        if acc == "float32":
-            ref = gs.row_scatter_add_ref(idx, upd, t, nshadow, torch.float32)
-            assert float((out - ref).abs().max()) <= 1e-6 * scale
-        assert float((out.double() - exact).abs().max()) <= (1e-6 if acc == "float32" else 1e-2) * scale
+    normal = [(idx, upd, exact, t)]
+    for w, offset in [(8, 0), (3, 0), (32, 0), (16, 1)]:  # the edges on normal draws, 4 rows an entry
+        normal.append((*_scatter_edge(w, 16384, offset, rng, 4096, "cuda", normal=True), 4096))
+    for idx, upd, exact, t in normal:
+        scale = float(exact.abs().max())
+        for nshadow, acc in VARIANTS:
+            out = gs.row_scatter_add(idx, upd, t, nshadow, getattr(torch, acc))
+            if acc == "float32":
+                ref = gs.row_scatter_add_ref(idx, upd, t, nshadow, torch.float32)
+                assert float((out - ref).abs().max()) <= 1e-6 * scale
+            assert float((out.double() - exact).abs().max()) <= (1e-6 if acc == "float32" else 1e-2) * scale
     torch.cuda.synchronize()
