@@ -28,11 +28,9 @@ In order:
      exact at W = 8, 3, 32, on an update view 4 bytes off and on one row
      (each variant's device ms and share of the bound, the zero fill
      alone), sublane_gather also on every index equal, as an empty kernel
-     of its grid, through its band path at the probe's slab and that
-     path's band copy alone, and on the edges of its plan (rows off the TMA
-     boxes, 136 and 4 columns, 8192 rows, a view 4 bytes off, and the band
-     path's own shapes, timed against the element path) (each kernel's
-     device ms beside its bound and its share of it);
+     of its grid, and on 4099 and 8192 rows, 136 and 4 columns and a table
+     view 4 bytes off (each kernel's device ms beside its bound and its
+     share of it);
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
      just before and read just after: each kernel of the path must have
@@ -95,6 +93,8 @@ from pathlib import Path
 
 import torch
 
+from loner_tpu_torch.probes.timing import empty_grid, graph_ms
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -103,12 +103,6 @@ def _event_ms(fn, iters: int, warmup: int = 2) -> float:
     from loner_tpu_torch.probes.timing import time_ms
 
     return time_ms(fn, torch.device("cuda", 0), iters, warmup)
-
-
-def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    from loner_tpu_torch.probes.timing import graph_ms
-
-    return graph_ms(fn, calls, replays)
 
 
 def _bound(nbytes: float, flops: float):
@@ -394,8 +388,8 @@ def _check_fused_kernels(fe, ecfg, pts, gen, what):
         "fwd_plain_ms": _event_ms(lambda: fe.interp_fwd_ref(pts, v_t, ecfg), 3, 1),
         "dpts_ms": _event_ms(lambda: fe.interp_dpts(pts, v_t, g, ecfg), 20),
         "dpts_plain_ms": _event_ms(lambda: fe.dpts_ref(pts, v_t, g, ecfg), 3, 1),
-        "fwd_graph_ms": _graph_ms(lambda: fe.interp_fwd(pts, v_t, ecfg)),
-        "dpts_graph_ms": _graph_ms(lambda: fe.interp_dpts(pts, v_t, g, ecfg)),
+        "fwd_graph_ms": graph_ms(lambda: fe.interp_fwd(pts, v_t, ecfg)),
+        "dpts_graph_ms": graph_ms(lambda: fe.interp_dpts(pts, v_t, g, ecfg)),
         "gather_ms": _event_ms(lambda: fe._gather_v_t(tables_bf16, pts, ecfg), 10),
         "dtable_strided_ms": _event_ms(lambda: fe._bwd_dtable_strided(pts, g, key, ecfg), 10),
     }
@@ -426,7 +420,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     calls after a warm-up (the plain versions over 20). Bounds: bytes, each
     input read once and each output written once (the work is a load and a
     store, or an add, per element)."""
-    from loner_tpu_torch.probes import bench_dyngather, bench_gather2, bench_pallas_scatter, kernel_variants
+    from loner_tpu_torch.probes import bench_dyngather, bench_gather2, bench_pallas_scatter
 
     dev = pts.device
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -436,7 +430,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
         """(ms, plain ms, library ms) of back-to-back calls, host included;
         the kernel's and the library call's device times (CUDA graph
         replay) go into ``details``."""
-        details[f"{name}_graph_ms"] = {"kernel": _graph_ms(fn), "library": _graph_ms(library)}
+        details[f"{name}_graph_ms"] = {"kernel": graph_ms(fn), "library": graph_ms(library)}
         return _event_ms(fn, 200, 5), _event_ms(plain, 20, 2), _event_ms(library, 200, 5)
 
     # P1 row_scatter_add: N rows of 16 f32 into T rows
@@ -481,9 +475,9 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
             raise AssertionError(f"{label}: err vs plain {e_plain}, vs index_add_ {e_lib}, scale {scale}")
         call = lambda: gs.row_scatter_add(idx, upd, t, nshadow, acc)  # noqa: E731
         errs[label] = {"vs_plain": e_plain, "vs_index_add": e_lib, "ms": _event_ms(call, 200, 5),
-                       "graph_ms": _graph_ms(call)}
+                       "graph_ms": graph_ms(call)}
     bound = _bound(4 * n + 4 * n * w + 4 * t * w, n * w)
-    fill_ms = _graph_ms(lambda: torch.zeros((t, w), device=dev))
+    fill_ms = graph_ms(lambda: torch.zeros((t, w), device=dev))
     details["row_scatter_add"] = {"scale": scale, "variants": errs, "zero_fill_graph_ms": fill_ms,
                                   "edges_exact": [list(k) for k in edges]}
     print("row_scatter_add variants: " + "; ".join(
@@ -507,7 +501,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
             if not (torch.equal(got, plain(tab, ix)) and torch.equal(got, library(ix))):
                 raise AssertionError(f"{name} disagrees with its plain version or its library call on {label}")
             del got
-            out[label] = _graph_ms(lambda: fn(tab, ix))
+            out[label] = graph_ms(lambda: fn(tab, ix))
         print(f"{name} device ms by graph replay on other indices: {out}", flush=True)
         return out
 
@@ -560,43 +554,23 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     gather_entry("sublane_gather", lambda: gs.sublane_gather(tab, idx), lambda: gs.sublane_gather_ref(tab, idx),
                  lambda: torch.gather(tab, 0, idx64), 3 * 4 * r * 128, "scripts/bench_dyngather.py:56")
     # the largest slab's parts: every index equal (lookups nearly free), an
-    # empty kernel of the same grid (the launch floor); and the band path
-    # there, which the plan does not take (clusters of 8, a lookup a copied
-    # band row): its time and its band copy alone
-    plan, band = gs.sublane_gather_plan(r, 128, tab.data_ptr() % 16 == 0), gs.band_plan(r, 128)
+    # empty kernel of the same grid (the launch floor)
     parts = variant_ms("sublane_gather", gs.sublane_gather, gs.sublane_gather_ref,
                        lambda i: torch.gather(tab, 0, i.long()), tab, {"all_equal": torch.full_like(idx, r // 2)})
-    parts["empty_kernel"] = _graph_ms(lambda: kernel_variants.empty(plan))
-    out = torch.empty_like(tab)
-    kernel_variants.band_gather(tab, idx, out, band)
-    if not torch.equal(out, torch.gather(tab, 0, idx64)):
-        raise AssertionError(f"sublane_gather's band path disagrees with torch.gather at rows={r}")
-    parts["band_path"] = _graph_ms(lambda: kernel_variants.band_gather(tab, idx, out, band))
-    parts["band_copy"] = _graph_ms(lambda: kernel_variants.band_copy(tab, band))
-    details["sublane_gather_variants"] = {"plan": plan._asdict(), "band_plan": band._asdict(), **parts}
-    print(f"sublane_gather at rows={r}: {plan}; device ms all-equal {parts['all_equal']:.4f}, empty kernel "
-          f"{parts['empty_kernel']:.4f}; the band path ({band}) {parts['band_path']:.4f}, its band copy alone "
-          f"{parts['band_copy']:.4f}", flush=True)
-    # the edges: rows off the 256-row boxes, 136 columns (17 bands), 4
-    # columns, a band beyond shared memory, a table view 4 bytes off (all
-    # on the element path); 1024 x 512 (the band path, clusters of 2) and
-    # 512 x 1024 (clusters of 1), each also against the element path
-    band_ms = {}
-    for er, ec, off in ((4099, 128, 0), (512, 136, 0), (512, 4, 0), (8192, 128, 0), (512, 128, 1), (1024, 512, 0),
-                        (512, 1024, 0)):
+    parts["empty_kernel"] = graph_ms(lambda: empty_grid(-(-r * 128 // 256), dev))
+    details["sublane_gather_variants"] = parts
+    print(f"sublane_gather at rows={r}: device ms all-equal {parts['all_equal']:.4f}, an empty kernel of its grid "
+          f"{parts['empty_kernel']:.4f}", flush=True)
+    # the edges: rows not a multiple of a block's, 136 and 4 columns, 8192
+    # rows, a table view 4 bytes off a 16-byte boundary
+    for er, ec, off in ((4099, 128, 0), (512, 136, 0), (512, 4, 0), (8192, 128, 0), (512, 128, 1)):
         e_tab = torch.randn((er * ec + off,), generator=gen, device=dev)[off:].view(er, ec)
         e_idx = torch.randint(0, er, (er, ec), generator=gen, device=dev, dtype=torch.int32)
         got = gs.sublane_gather(e_tab, e_idx)
-        lib_out = torch.gather(e_tab, 0, e_idx.long())
-        if not (torch.equal(got, gs.sublane_gather_ref(e_tab, e_idx)) and torch.equal(got, lib_out)):
+        if not (torch.equal(got, gs.sublane_gather_ref(e_tab, e_idx))
+                and torch.equal(got, torch.gather(e_tab, 0, e_idx.long()))):
             raise AssertionError(f"sublane_gather disagrees at ({er}, {ec}), a view {off} floats in")
-        e_plan = gs.sublane_gather_plan(er, ec, e_tab.data_ptr() % 16 == 0)
-        if e_plan.path == "band":
-            band_ms[f"{er}x{ec}"] = {"band": _graph_ms(lambda: gs.sublane_gather(e_tab, e_idx)),
-                                     "element": _graph_ms(lambda: kernel_variants.element_gather(e_tab, e_idx, got))}
-    details["sublane_gather_band_shapes"] = band_ms
-    print(f"sublane_gather on its band path's shapes, device ms: {band_ms}", flush=True)
-    del got, lib_out, e_tab, e_idx, out
+    del got, e_tab, e_idx
     r, chunks = bench_dyngather.R, bench_dyngather.CHUNKS
     tab = torch.randn((r, 128), generator=gen, device=dev)
     idxs = torch.randint(0, r, (chunks, r, 128), generator=gen, device=dev, dtype=torch.int32)
@@ -640,7 +614,7 @@ def _check_probe_kernels(gs, cp_kernel, lines, pts, res, nf, b1_bound):
     del out
     ms = _event_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf), 200, 5)
     plain_ms = _event_ms(lambda: cp_kernel.cp_fwd_gather_ref(lines, pts, res), 3, 1)
-    details["cp_fwd_gather_graph_ms"] = {"kernel": _graph_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf))}
+    details["cp_fwd_gather_graph_ms"] = {"kernel": graph_ms(lambda: cp_kernel.cp_fwd_gather(lines, pts, res, nf))}
     entries.append(_entry("cp_fwd_gather", "cp_gather.cu", "scripts/bench_lane_gather.py:48", err, ms, plain_ms,
                           b1_bound, None))
     details["cp_fwd_gather_vs_b1"] = err_b1
@@ -1121,7 +1095,7 @@ def main() -> None:
                        replaces="loner_tpu/ops/cp_kernel.py:168", max_abs_err=err, ms=b1_ms, plain_ms=b1_plain,
                        bound_ms=b1_bound[0], bound_by=b1_bound[1], library_ms=None))
 
-    device_ms = {"cp_fwd": _graph_ms(lambda: cp_kernel.cp_fwd(lines, pts, res, nf))}
+    device_ms = {"cp_fwd": graph_ms(lambda: cp_kernel.cp_fwd(lines, pts, res, nf))}
 
     # B2 (f32, the main path's mode), plus the bf16 knob's agreement, on the
     # flagship's ray-ordered points and on a fixed permutation of the same
@@ -1149,8 +1123,8 @@ def main() -> None:
     b2_ms = _event_ms(lambda: cp_kernel.cp_bwd(lines, pts, g, res, nf), 10)
     b2_plain = _event_ms(lambda: cp_kernel.cp_bwd_ref(lines, pts, g, res, nf), 3, 1)
     p_o, g_o = orders.pop("permuted")
-    device_ms["cp_bwd"] = _graph_ms(lambda: cp_kernel.cp_bwd(lines, pts, g, res, nf))
-    device_ms["cp_bwd_permuted"] = _graph_ms(lambda: cp_kernel.cp_bwd(lines, p_o, g_o, res, nf))
+    device_ms["cp_bwd"] = graph_ms(lambda: cp_kernel.cp_bwd(lines, pts, g, res, nf))
+    device_ms["cp_bwd_permuted"] = graph_ms(lambda: cp_kernel.cp_bwd(lines, p_o, g_o, res, nf))
     del p_o, g_o, orders
     # the port's yardstick for B2: 3x faster than the first design's 1.95 ms
     # (its target is 0.395 ms, half its byte bound)
@@ -1187,7 +1161,7 @@ def main() -> None:
     b3_ms = _event_ms(lambda: pdf_kernel.pdf_sample(bins, cdf, u), 50)
     b3_plain = _event_ms(lambda: pdf_kernel.pdf_sample_ref(bins, cdf, u), 5, 1)
     b3_lib = _event_ms(library, 50)
-    b3_graph = {"kernel": _graph_ms(lambda: pdf_kernel.pdf_sample(bins, cdf, u)), "library": _graph_ms(library)}
+    b3_graph = {"kernel": graph_ms(lambda: pdf_kernel.pdf_sample(bins, cdf, u)), "library": graph_ms(library)}
     print(f"pdf_sample: device ms by graph replay {b3_graph}")
     nr, m1 = cdf.shape
     # bytes: bins, cdf, u in, samples out; ops: ~log2(M+1) compares + 6 per draw

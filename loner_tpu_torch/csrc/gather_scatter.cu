@@ -85,27 +85,16 @@
 //    the 0.107. Worst case: a row whose m are all distinct reads C values,
 //    one per element, as the first design did.
 //  * lane_gather: one thread per output element.
-//  * sublane_gather, out[i, j] = tab[idx[i, j], j]: one thread per element
-//    (the element path) is bound by its lookups, one 32-byte L2 sector
-//    each: at the probe's (4096, 128) slab, 5.6 us on uniform draws, 2.5
-//    with every index equal, 2.0 for an empty kernel of its grid. The band
-//    path holds a band of B = 8 columns (one sector of a row) of tab in
-//    the shared memory of each CTA of a thread-block cluster: CTA r of the
-//    cluster copies boxes r, r + cluster, ... of the band (256 rows each)
-//    from L2 with TMA and multicasts each to the whole cluster, then each
-//    CTA serves its split of the rows' lookups from shared memory. Every
-//    SM still takes in the whole band, rows x 32 bytes, as one 32-byte
-//    request a row, and the card delivers those no faster than the element
-//    path's random lookups (about 0.4-0.7 a clock an SM, whether by
-//    multicast, a plain TMA copy, cp.async or a slice pushed between the
-//    CTAs of a cluster; PERF.md section 6). So the band path pays only
-//    where a CTA makes at least 4 lookups per band row it copies (a cluster
-//    of 1 or 2, 43 bands or more) on at most 1024 rows:
-//    sublane_gather_plan in ops/gather_scatter.py picks it there, and the
-//    element path everywhere else, the probe's slabs among them (there the
-//    band path takes 9-11 us). It needs cols a multiple of B and tab
-//    16-byte aligned (TMA). Worst case of the band path: a band copy of
-//    1024 rows for one cluster's lookups.
+//  * sublane_gather, out[i, j] = tab[idx[i, j], j]: one thread per element,
+//    bound by its lookups, one 32-byte L2 sector each: at the probe's
+//    (4096, 128) slab, 5.7 us on uniform draws, 2.5 with every index equal,
+//    2.0 for an empty kernel of its grid (loner_empty_grid). A design that
+//    held a band of 8 columns in the shared memory of each CTA of a
+//    thread-block cluster (TMA copies multicast over the cluster) was
+//    slower there, 11 us: every SM must still take in its whole band as
+//    one 32-byte request a row, no faster than random lookups (PERF.md
+//    section 6). Worst case: lookups spread over a table larger than
+//    L2.
 //
 // Indices are in range by construction in every probe; the kernels do not
 // check them (the plain CPU versions, torch.gather and indexing, raise on a
@@ -117,8 +106,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-
-#include "tma.cuh"
 
 #define GS_THREADS 256
 
@@ -301,60 +288,15 @@ __global__ void lane_gather_kernel(const float* __restrict__ tab, const int* __r
   out[e] = tab[e - e % cols + (u32)idx[e]];
 }
 
-// out[i, j] = tab[idx[i, j], j], one thread per element (the general path)
+// out[i, j] = tab[idx[i, j], j]
 __global__ void sublane_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                                       float* __restrict__ out, u32 total, u32 cols) {
   THREAD_ELEMENT(e, total);
   out[e] = tab[(u32)idx[e] * cols + e % cols];
 }
 
-#define SG_THREADS 256
-#define SG_BOX_ROWS 256  // rows of a TMA box, the most a box dimension holds
-#define SG_PREFETCH 16   // elements a thread reads the indices of while the band arrives
-#define SG_MAX_SMEM 232448
-
-// The band path: the CTAs of cluster y (blockIdx.x = rank r of gridDim.x)
-// take columns c0 = B y .. c0 + B of out. Each holds the whole band of tab
-// (nboxes boxes of box_rows rows x B floats) in shared memory: CTA r copies
-// boxes r, r + gridDim.x, ... from L2 once and multicasts each to the whole
-// cluster, so the band leaves L2 once a cluster. While it arrives a thread
-// reads the indices of its first elements of the CTA's rows r0 .. r0 +
-// split_rows; then every lookup is a shared-memory read (a bank conflict of
-// 2-3 ways on uniform draws).
-template <int B>
-__global__ void __launch_bounds__(SG_THREADS)
-    sublane_band_kernel(const __grid_constant__ CUtensorMap map, const int* __restrict__ idx,
-                        float* __restrict__ out, u32 rows, u32 cols, u32 box_rows, u32 nboxes, u32 split_rows) {
-  extern __shared__ unsigned char sg_raw[];
-  const u32 raw = smem_u32(sg_raw), base = (raw + 127) & ~127u;  // TMA writes 128-byte aligned boxes
-  const float* band = (const float*)(sg_raw + (base - raw));
-  const u32 box_bytes = box_rows * B * 4, bar = base + nboxes * box_bytes;
-  const u32 rank = blockIdx.x, nct = gridDim.x, c0 = blockIdx.y * B;
-  if (threadIdx.x == 0) mbar_init_expect(bar, nboxes * box_bytes);
-  cluster_sync();  // every CTA's barrier armed before a copy can land in it
-  if (threadIdx.x == 0)
-    for (u32 k = rank; k < nboxes; k += nct)
-      tma_load_multicast(base + k * box_bytes, &map, c0, k * box_rows, bar, (unsigned short)((1u << nct) - 1));
-  const u32 r0 = min(rows, rank * split_rows), n_el = (min(rows, r0 + split_rows) - r0) * B;
-  const u32 j = threadIdx.x % B;  // SG_THREADS % B == 0: a thread keeps its column
-  const int* ib = idx + r0 * cols + c0 + j;
-  float* ob = out + r0 * cols + c0 + j;
-  int ix[SG_PREFETCH];
-#pragma unroll
-  for (int k = 0; k < SG_PREFETCH; ++k) {
-    const u32 e = threadIdx.x + k * SG_THREADS;
-    if (e < n_el) ix[k] = __ldcs(ib + e / B * cols);
-  }
-  mbar_wait(bar, 0);
-#pragma unroll
-  for (int k = 0; k < SG_PREFETCH; ++k) {
-    const u32 e = threadIdx.x + k * SG_THREADS;
-    if (e < n_el) __stcs(ob + e / B * cols, band[(u32)ix[k] * B + j]);
-  }
-  for (u32 e = threadIdx.x + SG_PREFETCH * SG_THREADS; e < n_el; e += SG_THREADS)
-    __stcs(ob + e / B * cols, band[(u32)__ldcs(ib + e / B * cols) * B + j]);
-  cluster_sync();  // no CTA leaves while a copy it issued may be in flight
-}
+// does nothing: the launch floor of a grid, for the probes' timings
+__global__ void empty_kernel() {}
 
 #define TS_WARPS 8     // warps a block, a row each
 #define TS_Q 2         // a short row, at most 32 x V x TS_Q columns, stays in registers
@@ -606,59 +548,13 @@ extern "C" int loner_lane_gather(const float* tab, const int* idx, float* out, l
   return (int)cudaGetLastError();
 }
 
-// rows of a TMA box and bytes of shared memory of the band path, as
-// sublane_gather_plan computes them: whole boxes, a 128-byte alignment pad
-// and the barrier
-static u32 band_box_rows(long long rows) {
-  return rows >= SG_BOX_ROWS ? SG_BOX_ROWS : rows > 8 ? (u32)((rows + 7) / 8 * 8) : 8;
-}
-static long long band_smem(long long rows, int band) {
-  const long long box = band_box_rows(rows);
-  return 128 + (rows + box - 1) / box * box * band * 4 + 8;
-}
-
-template <int B>
-static int launch_band(const float* tab, const int* idx, float* out, long long rows, long long cols, int cluster,
-                       cudaStream_t s) {
-  CUtensorMap map;
-  const u32 box = band_box_rows(rows);
-  int rc = encode_f32_map(&map, tab, rows, cols, box, B);
-  if (rc) return rc;
-  const long long smem = band_smem(rows, B);
-  cudaError_t e = cudaFuncSetAttribute(sublane_band_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned int)cluster, (unsigned int)(cols / B));
-  cfg.blockDim = dim3(SG_THREADS);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned int)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const u32 nboxes = (u32)((rows + box - 1) / box), split = (u32)((rows + cluster - 1) / cluster);
-  e = cudaLaunchKernelEx(&cfg, sublane_band_kernel<B>, map, idx, out, (u32)rows, (u32)cols, box, nboxes, split);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
-}
-
-// band 0: one thread per element; band 4 or 8: the band path with `cluster`
-// CTAs a band, which needs cols a multiple of the band, tab 16-byte aligned
-// and the band within a block's shared memory (sublane_gather_plan)
 extern "C" int loner_sublane_gather(const float* tab, const int* idx, float* out, long long rows,
-                                    long long cols, int band, int cluster, void* stream) {
+                                    long long cols, void* stream) {
   const long long total = rows * cols;
   if (!fits32(total)) return (int)cudaErrorInvalidValue;
-  if (band && (!(band == 4 || band == 8) || cols % band || cols / band > 65535 || !aligned16(tab) ||
-               cluster < 1 || cluster > 8 || cluster > rows || band_smem(rows, band) > SG_MAX_SMEM))
-    return (int)cudaErrorInvalidValue;
   if (total <= 0) return 0;
-  const cudaStream_t s = STREAM(stream);
-  if (band == 8) return launch_band<8>(tab, idx, out, rows, cols, cluster, s);
-  if (band == 4) return launch_band<4>(tab, idx, out, rows, cols, cluster, s);
-  sublane_gather_kernel<<<blocks_for(total), GS_THREADS, 0, s>>>(tab, idx, out, (u32)total, (u32)cols);
+  sublane_gather_kernel<<<blocks_for(total), GS_THREADS, 0, STREAM(stream)>>>(tab, idx, out, (u32)total,
+                                                                               (u32)cols);
   return (int)cudaGetLastError();
 }
 
@@ -682,5 +578,12 @@ extern "C" int loner_two_stage_gather(const float* tab, const int* idx, float* o
     two_stage_long_kernel<4><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
   else
     two_stage_long_kernel<1><<<blocks, TS_WARPS * 32, smem, s>>>(tab, idx, out, nr, c);
+  return (int)cudaGetLastError();
+}
+
+// an empty kernel of `blocks` blocks of GS_THREADS threads
+extern "C" int loner_empty_grid(long long blocks, void* stream) {
+  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<(unsigned int)blocks, GS_THREADS, 0, STREAM(stream)>>>();
   return (int)cudaGetLastError();
 }

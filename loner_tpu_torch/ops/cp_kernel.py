@@ -178,6 +178,7 @@ cp_fwd.launches = 0
 # function in its order: the same clip, floor, lerp and product.
 cp_fwd_gather_ref = cp_encode_ref
 
+_SMEM_BYTES = 232_448  # the most dynamic shared memory a block may use on an H100
 
 
 def cp_fwd_gather(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Sequence[int], n_features: int) -> torch.Tensor:
@@ -188,7 +189,7 @@ def cp_fwd_gather(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Seque
     if pts_t.device.type == "cpu":
         return cp_fwd_gather_ref(lines_t, pts_t, resolutions)
     res = _check_args(lines_t, pts_t, resolutions, n_features)
-    if lines_t.numel() * 4 > kernels.SMEM_BYTES:
+    if lines_t.numel() * 4 > _SMEM_BYTES:
         raise ValueError(f"lines_t: {lines_t.numel() * 4} bytes do not fit in a block's shared memory")
     if lines_t.data_ptr() % 16:
         raise ValueError("lines_t: expected 16-byte aligned storage")
@@ -253,9 +254,9 @@ def cp_bwd_plan(resolutions: Sequence[int], n_features: int) -> CpBwdPlan:
     table = 3 * sum(int(r) for r in resolutions) * (n_features | 1)
     parts = 0 if n_features == 16 else tile * (3 * lanes + 1)
     smem = 4 * (-(-table // 4) * 4 + max(4 * n_levels * tile, parts) + 4 * tile)
-    if smem > kernels.SMEM_BYTES:
+    if smem > _SMEM_BYTES:
         raise ValueError(f"cp backward: {smem} bytes of shared memory for F={n_features}, "
-                         f"res {tuple(resolutions)}; a block has {kernels.SMEM_BYTES}")
+                         f"res {tuple(resolutions)}; a block has {_SMEM_BYTES}")
     return CpBwdPlan(run, runs, lanes, -(-lanes * runs // 32) * 32, tile, smem)
 
 

@@ -19,14 +19,10 @@ launched. Indices are int32, as the kernels take them; the plain versions
 widen them to int64 for torch. The kernels do not check that an index is in
 range (the probes draw them in range); the plain versions raise on one. The
 kernels compute offsets in 32 bits and refuse (RuntimeError) a tensor of
-2^31 elements or more. :func:`row_scatter_add` and :func:`sublane_gather`
-pick their kernel's path with a plan (:func:`row_scatter_add_plan`,
-:func:`sublane_gather_plan`) that the C entry checks again; the band path
-of :func:`sublane_gather` launches as thread-block clusters.
+2^31 elements or more. :func:`row_scatter_add` picks its kernel's path
+with :func:`row_scatter_add_plan`, which the C entry checks again.
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import torch
 
@@ -218,75 +214,9 @@ def lane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 lane_gather.launches = 0
 
 
-SG_BAND = 8  # columns a band of the band path: 32 bytes of a row, one L2 sector
-SG_BOX_ROWS = 256  # rows of a TMA box, the most a box dimension may hold
-SG_MAX_CLUSTER = 8  # CTAs a band: the largest portable thread-block cluster
-SG_CTAS = 128  # CTAs the band path aims at: one per SM of an H100's 132, in whole clusters of 8
-SG_MAX_ROWS = 1024  # the band path's rows: from 2048 on the element path is faster
-SG_MIN_LOOKUPS = 4  # lookups a CTA makes per band row it copies, at least (band / cluster)
-SG_THREADS = 256
-
-
-class SublaneGatherPlan(NamedTuple):
-    """How :func:`sublane_gather`'s kernel runs: ``path`` ``"band"`` (the
-    table's columns in bands of ``band``, each band held in the shared
-    memory of every CTA of one thread-block cluster of ``cluster`` CTAs, each
-    CTA taking a split of the rows) or ``"element"`` (a thread per element,
-    ``band`` 0); ``ctas`` blocks in all; ``smem_bytes`` of dynamic shared
-    memory a CTA (whole boxes of the band, a 128-byte alignment pad and the
-    barrier)."""
-
-    path: str
-    band: int
-    cluster: int
-    ctas: int
-    smem_bytes: int
-
-
-def band_plan(rows: int, cols: int, band: int = SG_BAND) -> SublaneGatherPlan:
-    """The band path's launch on a (rows, cols) table whose rows start on
-    16-byte boundaries, taken or not: ``cols // band`` bands, the most CTAs
-    a band (up to 8, and no more than the rows) that keep the grid within
-    :data:`SG_CTAS`, the band's rows in whole TMA boxes."""
-    box = SG_BOX_ROWS if rows >= SG_BOX_ROWS else max(8, -(-rows // 8) * 8)
-    bands = cols // band
-    cluster = max(1, min(SG_MAX_CLUSTER, SG_CTAS // max(bands, 1), rows))
-    return SublaneGatherPlan("band", band, cluster, bands * cluster, 128 + -(-rows // box) * box * band * 4 + 8)
-
-
-def sublane_gather_plan(rows: int, cols: int, tab_aligned: bool, band: int = SG_BAND) -> SublaneGatherPlan:
-    """The launch of :func:`sublane_gather` on a (rows, cols) table that
-    starts on a 16-byte boundary or not (``tab_aligned``). Every CTA of the
-    band path copies the band's rows from L2 before its lookups, at about
-    the cost of as many lookups, so it pays where a CTA makes at least
-    :data:`SG_MIN_LOOKUPS` lookups per band row (a cluster of 1 or 2 at
-    bands of 8) on at most :data:`SG_MAX_ROWS` rows, and TMA can copy the
-    band (cols a multiple of ``band``, 4 or 8; ``tab`` 16-byte aligned).
-    Every other shape, the probe's (rows, 128) slabs among them, takes the
-    element path."""
-    plan = band_plan(rows, cols, band)
-    if (tab_aligned and band in (4, 8) and cols % band == 0 and 0 < rows <= SG_MAX_ROWS and cols // band <= 65535
-            and band // plan.cluster >= SG_MIN_LOOKUPS and plan.smem_bytes <= kernels.SMEM_BYTES):
-        return plan
-    return SublaneGatherPlan("element", 0, 1, -(-rows * cols // SG_THREADS), 0)
-
-
 def sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[i, j] = tab[idx[i, j], j]``; ``tab`` f32 and ``idx`` of one shape.
-    On CUDA the launch follows :func:`sublane_gather_plan`: on the band path
-    one launch of thread-block clusters."""
-    dev = _table(tab, "tab")
-    kernels.require(idx, "idx", torch.int32, tuple(tab.shape), dev)
-    if dev.type == "cpu":
-        return sublane_gather_ref(tab, idx)
-    out = torch.empty_like(tab)
-    if out.numel() == 0:
-        return out
-    plan = sublane_gather_plan(*tab.shape, tab.data_ptr() % 16 == 0)
-    _launch("sublane_gather", out, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), *tab.shape, plan.band,
-            plan.cluster)
-    sublane_gather.launches += 1
-    return out
+    """``out[i, j] = tab[idx[i, j], j]``; ``tab`` f32 and ``idx`` of one shape."""
+    return _same_shape_lookup("sublane_gather", sublane_gather_ref, tab, idx, sublane_gather)
 
 
 sublane_gather.launches = 0

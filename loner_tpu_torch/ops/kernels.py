@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one process
 per source, all started together) and linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The library is built at first use
 into ``build/loner_tpu_torch_kernels/<hash>/`` beside the package, keyed by a
-hash of the sources, the headers of ``csrc/`` and the flags, so a fresh checkout builds it once and an edit
+hash of the sources and flags, so a fresh checkout builds it once and an edit
 to a source rebuilds it. Nothing here runs at import.
 
 Each C entry point launches on the stream it is given, allocates nothing, and
@@ -31,7 +31,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libloner_tpu_torch_kernels.so"
-SMEM_BYTES = 232_448  # the most dynamic shared memory a block may use on an H100
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,10 +60,12 @@ _SIGNATURES = {
     "loner_col_gather": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
     # tab, idx, out, rows, cols, stream
     "loner_lane_gather": (_P, _P, _P, _LL, _LL, _P),
-    # tab, idx, out, rows, cols, band, cluster, stream
-    "loner_sublane_gather": (_P, _P, _P, _LL, _LL, _I, _I, _P),
+    # tab, idx, out, rows, cols, stream
+    "loner_sublane_gather": (_P, _P, _P, _LL, _LL, _P),
     # tab, idx, out, chunks, rows, cols, stream
     "loner_two_stage_gather": (_P, _P, _P, _LL, _LL, _LL, _P),
+    # blocks, stream
+    "loner_empty_grid": (_LL, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -84,7 +85,7 @@ def _sources():
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -124,35 +125,23 @@ def _build(sources, out_dir: Path) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def build(sources, root: Path = BUILD_ROOT) -> Path:
-    """The directory under ``root`` that holds the library of ``sources``
-    (and its ``build.log``), built there unless a build of the same sources,
-    headers and flags already is."""
-    out_dir = root / _digest(sources)
-    if not (out_dir / _LIB_NAME).exists():
-        _build(sources, out_dir)
-    return out_dir
-
-
-def open_library(out_dir: Path, signatures: dict) -> ctypes.CDLL:
-    """The library built into ``out_dir``, with the argument types of each
-    C entry in ``signatures`` set."""
-    lib = ctypes.CDLL(str(out_dir / _LIB_NAME))
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     global _lib, build_log
-    if _lib is None:
-        out_dir = build(_sources())
-        build_log = (out_dir / "build.log").read_text() if (out_dir / "build.log").exists() else ""
-        _lib = open_library(out_dir, _SIGNATURES)
-    return _lib
+    if _lib is not None:
+        return _lib
+    sources = _sources()
+    out_dir = BUILD_ROOT / _digest(sources)
+    if not (out_dir / _LIB_NAME).exists():
+        _build(sources, out_dir)
+    build_log = (out_dir / "build.log").read_text() if (out_dir / "build.log").exists() else ""
+    lib = ctypes.CDLL(str(out_dir / _LIB_NAME))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
 
 
 def check(rc: int, name: str) -> None:

@@ -7,6 +7,8 @@ from typing import Callable
 
 import torch
 
+from loner_tpu_torch.ops import kernels
+
 
 def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 1, warmup: int = 1) -> float:
     """ms per call of ``fn``: ``warmup`` calls, then ``iters`` calls timed
@@ -63,6 +65,15 @@ def graph_ms(fn: Callable[[], object], calls: int = 20, replays: int = 10) -> fl
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def empty_grid(blocks: int, device: torch.device) -> None:
+    """Launch an empty kernel of ``blocks`` blocks of 256 threads on
+    ``device``'s current stream: what a graph node of that grid costs when
+    its kernel does nothing."""
+    with torch.cuda.device(device):
+        kernels.check(kernels.load().loner_empty_grid(blocks, torch.cuda.current_stream(device).cuda_stream),
+                      "empty_grid")
 
 
 def device_name(device: torch.device) -> str:

@@ -13,7 +13,6 @@ from jax.experimental.pallas import tpu as pltpu
 
 import torch_parity as tp
 from loner_tpu_torch.ops import gather_scatter as gs
-from loner_tpu_torch.ops import kernels
 
 # ---------------------------------------------------------------------------
 # P1: row scatter-add against the Pallas kernel in interpret mode
@@ -138,10 +137,9 @@ SLAB_SHAPES = [(8, 3), (64, 2)]  # (rows, chunks of the two-stage lookup)
 SLAB_CASES = [(kind, rows, chunks) for kind in ("lane_gather", "sublane_gather", "two_stage_gather")
               for rows, chunks in SLAB_SHAPES] + [("two_stage_gather_all_equal", 8, 3),
                                                   ("two_stage_gather_all_distinct", 256, 2)]
-# the sublane gather's edges: rows off 256-row TMA boxes, columns that are
-# not 128 (136: 17 bands; 4: not a multiple of the band; 1024 and 512: the
-# band path's shapes), every index equal, and a table view 4 bytes off a
-# 16-byte boundary
+# the sublane gather's edges: rows not a multiple of a block's, other column
+# counts (136, 4, 1024, 512), every index equal, and a table view 4 bytes
+# off a 16-byte boundary
 SLAB_CASES += [("sublane_gather", 4099, 1), ("sublane_gather_cols_136", 64, 1), ("sublane_gather_cols_4", 64, 1),
                ("sublane_gather_all_equal", 512, 1), ("sublane_gather_offset_view", 64, 1),
                ("sublane_gather_cols_1024", 64, 1), ("sublane_gather_cols_512", 1000, 1)]
@@ -255,66 +253,8 @@ def test_row_gather_moves_float4s_only_from_an_aligned_table():
 
 
 # ---------------------------------------------------------------------------
-# kernel paths (plans)
+# row_scatter_add's kernel paths
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("rows", [8, 512, 4096])
-def test_sublane_gather_plan_at_the_probe_slabs(rows):
-    """The probe's (rows, 128) slabs take the element path: the band path
-    there (16 bands of 8 columns, a cluster of 8 CTAs a band, 128 CTAs, each
-    holding the band's rows in whole 256-row boxes, rows rounded up to 8
-    below one box, with a 128-byte alignment pad and the 8-byte barrier)
-    makes one lookup per band row it copies, and is the slower."""
-    box = min(256, rows)
-    band = gs.band_plan(rows, 128)
-    assert band == gs.SublaneGatherPlan("band", 8, 8, 128, 128 + -(-rows // box) * box * 32 + 8)
-    assert gs.sublane_gather_plan(rows, 128, True) == gs.SublaneGatherPlan("element", 0, 1, rows // 2, 0)
-
-
-@pytest.mark.parametrize("rows,cols,cluster", [(1024, 512, 2), (512, 1024, 1), (1024, 1024, 1), (256, 4096, 1),
-                                               (1024, 344, 2), (3, 1024, 1)])
-def test_sublane_gather_plan_takes_the_band_path(rows, cols, cluster):
-    """At most 1024 rows, and a cluster of at most 2 CTAs a band of 8
-    columns (at least 4 lookups per copied band row): the band path."""
-    plan = gs.sublane_gather_plan(rows, cols, True)
-    assert plan == gs.band_plan(rows, cols)
-    assert (plan.path, plan.band, plan.cluster, plan.ctas) == ("band", 8, cluster, cols // 8 * cluster)
-
-
-def test_sublane_gather_band_path_fits_shared_memory():
-    taken = 0
-    for rows in (0, 1, 3, 7, 8, 9, 255, 256, 257, 1000, 1024, 1025, 4096, 4099, 7168, 8192):
-        for cols in (4, 8, 12, 16, 128, 136, 344, 512, 1000, 1024, 4096):
-            for band in (4, 8):
-                plan = gs.sublane_gather_plan(rows, cols, True, band)
-                if plan.path == "element":
-                    assert (cols % band or rows == 0 or rows > gs.SG_MAX_ROWS
-                            or band // gs.band_plan(rows, cols, band).cluster < 4)
-                    continue
-                taken += 1
-                assert plan.smem_bytes <= kernels.SMEM_BYTES
-                assert plan.smem_bytes >= rows * band * 4 + 136  # every row, the pad and the barrier
-                assert plan.band == band and cols % band == 0 and rows <= gs.SG_MAX_ROWS
-                assert 1 <= plan.cluster <= min(band // 4, rows) and plan.ctas == cols // band * plan.cluster
-    assert taken > 50
-
-
-@pytest.mark.parametrize("rows,cols,aligned", [(64, 4, True), (64, 12, True), (1024, 130, True), (2048, 1024, True),
-                                               (8192, 128, True), (1024, 336, True), (1024, 512, False)])
-def test_sublane_gather_plan_takes_the_element_path(rows, cols, aligned):
-    """Columns not a multiple of the band, more than 1024 rows (8192 rows
-    of 32 bytes would not fit in shared memory either), clusters of 3 or
-    more CTAs (336 columns: 42 bands), and a table that does not start on a
-    16-byte boundary (which TMA needs) take one thread per element."""
-    plan = gs.sublane_gather_plan(rows, cols, aligned)
-    assert plan == gs.SublaneGatherPlan("element", 0, 1, -(-rows * cols // 256), 0)
-
-
-def test_sublane_gather_plan_of_a_view_4_bytes_off():
-    _, _, view = _sublane_inputs("sublane_gather_offset_view_cols_1024", 64, np.random.default_rng(0))
-    assert gs.sublane_gather_plan(64, 1024, True).path == "band"
-    assert gs.sublane_gather_plan(*view.shape, view.data_ptr() % 16 == 0).path == "element"
 
 
 @pytest.mark.parametrize("w", [4, 8, 16, 32])
@@ -396,24 +336,15 @@ def test_gather_scatter_kernels_match_plain_on_card():
         for kind in ("two_stage_gather", "two_stage_gather_all_equal", "two_stage_gather_all_distinct"):
             ix = torch.as_tensor(_two_stage_indices(kind, rng, (k, r, c))).cuda()
             cases.append((gs.two_stage_gather, gs.two_stage_gather_ref, (tab, ix)))
-    # sublane_gather's edges, with the path the plan takes: the probe's
-    # slabs, rows off 256-row boxes, 136 columns (17 bands), 4 columns (not
-    # a multiple of the band), a band beyond shared memory (8192 rows x 32
-    # bytes), 2048 rows (element path); the band path in clusters of 2 (1024
-    # x 512, 1000 x 344: 43 bands, rows off the boxes) and of 1 (512 x 1024,
-    # 3 x 1024, one row); each also on every index equal, and on a table view
-    # 4 bytes off a 16-byte boundary (element path)
-    for rows, cols, path in [(8, 128, "element"), (512, 128, "element"), (4096, 128, "element"),
-                             (4099, 128, "element"), (512, 136, "element"), (512, 4, "element"),
-                             (8192, 128, "element"), (2048, 1024, "element"), (1024, 512, "band"),
-                             (1000, 344, "band"), (512, 1024, "band"), (3, 1024, "band"), (1, 128, "band")]:
+    # sublane_gather at the probe's slabs and on the edges: rows not a
+    # multiple of a block's, 136 and 4 columns, 8192 rows; each on uniform
+    # and all-equal indices and on a table view 4 bytes off a 16-byte boundary
+    for rows, cols in [(8, 128), (512, 128), (4096, 128), (4099, 128), (512, 136), (512, 4), (8192, 128)]:
         for kind in ("sublane_gather", "sublane_gather_all_equal", "sublane_gather_offset_view"):
             _, ix, tab = _sublane_inputs(f"{kind}_cols_{cols}", rows, rng)
             tab, ix = tab.cuda(), torch.as_tensor(ix).cuda()
             if kind.endswith("_offset_view"):
                 tab = torch.cat([torch.zeros(1, device="cuda"), tab.reshape(-1)])[1:].view(rows, cols)
-            want = "element" if kind.endswith("_offset_view") else path
-            assert gs.sublane_gather_plan(rows, cols, tab.data_ptr() % 16 == 0).path == want, (rows, cols, kind)
             assert torch.equal(gs.sublane_gather(tab, ix), torch.gather(tab, 0, ix.long())), (rows, cols, kind)
             cases.append((gs.sublane_gather, gs.sublane_gather_ref, (tab, ix)))
     tab = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32)).cuda()

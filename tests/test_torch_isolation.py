@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: no module of loner_tpu_torch imports JAX or
 the JAX package, its entry points and public constructors default to the
-card and raise without one (no CPU fallback), and the encoders and SLAM
-options not yet ported say so."""
+card and raise without one (no CPU fallback), the encoders and SLAM
+options not yet ported say so, and every C entry the kernel loader binds
+is defined in the CUDA sources."""
 import ast
 import importlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +30,7 @@ from loner_tpu_torch.models import nerf as tnerf
 from loner_tpu_torch.models import occupancy_grid as tocc
 from loner_tpu_torch.ops import cp_kernel as tcp
 from loner_tpu_torch.ops import fused_encoder as tfe
+from loner_tpu_torch.ops import kernels as tkernels
 from loner_tpu_torch.ops import triad_field as ttriad
 from loner_tpu_torch.runtime.debug_flags import DebugFlags
 from loner_tpu_torch.runtime.run_io import load_run
@@ -201,3 +204,17 @@ def test_probes_default_to_the_card(probe):
     module = importlib.import_module(f"loner_tpu_torch.probes.{probe}")
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main([])
+
+
+def test_every_bound_c_entry_is_defined_in_the_sources():
+    """Each name of the loader's signature table is defined once in
+    ``csrc/*.cu`` as an ``extern "C"`` function with as many parameters as
+    the table lists (a missing one fails only when the library loads on the
+    card)."""
+    defined = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (loner_\w+)\(([^)]*)\)', src.read_text()):
+            assert name not in defined, name
+            defined[name] = len([a for a in params.split(",") if a.strip()])
+    for name, argtypes in tkernels._SIGNATURES.items():
+        assert defined.get(name) == len(argtypes), (name, defined.get(name), len(argtypes))
