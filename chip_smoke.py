@@ -1,5 +1,6 @@
-"""Drive the PyTorch port (the mapper, and the online SLAM loop) on one CUDA
-card, and check it.
+"""Drive the PyTorch port (the mapper, the online SLAM loop with its loop
+closure and camera phase, and the users' drivers) on one CUDA card, and
+check it.
 
 Run from the root of a checkout, with one card:
 
@@ -66,6 +67,25 @@ In order:
       there: the window-16 step's and an eval render's);
       and ``python -m loner_tpu_torch.bench`` (its JSON line printed on its
       own; joint at most 1.05x frozen);
+  3e. loop closure at the reference operating point: the online half of
+      scripts/exp_quality_flagship.py through ``run_slam.run_trial`` (126
+      scans of one 31 m lap at 10 Hz, 32 x 512 returns, noise 0.01;
+      cfg/defaults.yaml with loop closure on, motion compensation off and
+      keyframes 0.75 s apart), every launch count set to 0 just before and
+      read just after (B1-B3 once per train step): tracking-only and
+      estimated ATE (at least one loop closure; the estimated ATE under the
+      tracking-only one and under 0.1 m), ba_info.json, the windows' its/s,
+      and the refinement's pose-graph solve on the card against the CPU;
+  3f. the camera phase at full width: LonerSLAM as in 3c with the online
+      camera phase on (20 steps of 1024 rays a window, the bf16 MLP) and a
+      640 x 360 image after each scan through ``process_image``, every
+      launch count set to 0 just before and read just after (B1-B3 as the
+      lidar steps, the camera steps and their point chunks imply): images
+      attached and dropped, the trained intensity branch's camera L1 under
+      0.8x a fresh one's, a camera step's ms and device-busy ms (profile in
+      chiprun_out/camera_step_profile.txt), B1-B3 held against their plain
+      versions on a camera step's inputs, and one camera step on the card
+      against the CPU;
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -86,6 +106,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -205,10 +226,11 @@ def _first_inputs(module, name: str, into: dict):
         setattr(module, name, fn)
 
 
-def _check_met_inputs(name, cp_in: dict, pdf_in: dict) -> list:
-    """B1 (``cp_fwd``) and B3 (``pdf_sample``) on the inputs a phase gave
-    them, against their plain versions with the bounds of the flagship
-    checks: B1 1e-5 of the features' scale, B3 1e-6."""
+def _check_met_inputs(name, cp_in: dict, pdf_in: dict, bwd_in: dict = None) -> list:
+    """B1 (``cp_fwd``), B3 (``pdf_sample``) and, when given, B2 (``cp_bwd``)
+    on the inputs a phase gave them, against their plain versions with the
+    bounds of the flagship checks: B1 1e-5 of the features' scale, B3 1e-6,
+    B2 dlines 1e-4 of its largest entry and dpts within 1e-4."""
     from loner_tpu_torch.ops import cp_kernel, pdf_kernel
 
     rows = []
@@ -218,6 +240,14 @@ def _check_met_inputs(name, cp_in: dict, pdf_in: dict) -> list:
         rows.append({"kernel": "cp_fwd", "points": pts.shape[1], "max_abs_err": err,
                      "ok": err <= 1e-5 * max(1.0, float(ref.abs().max()))})
         del ref
+    for lines, pts, g, res, nf, *mm in (bwd_in or {}).values():
+        dl, dp = cp_kernel.cp_bwd(lines, pts, g, res, nf, *mm)
+        dl_ref, dp_ref = cp_kernel.cp_bwd_ref(lines, pts, g, res, nf, *mm)
+        e_dl, e_dp = float((dl - dl_ref).abs().max()), float((dp - dp_ref).abs().max())
+        rows.append({"kernel": "cp_bwd", "points": pts.shape[1], "dlines_err": e_dl,
+                     "dlines_scale": float(dl_ref.abs().max()), "dpts_err": e_dp,
+                     "ok": e_dl <= 1e-4 * float(dl_ref.abs().max()) and bool(torch.allclose(dp, dp_ref, 1e-4, 1e-4))})
+        del dl, dp, dl_ref, dp_ref
     for bins, cdf, u, eps in pdf_in.values():
         err = float((pdf_kernel.pdf_sample(bins, cdf, u, eps) - pdf_kernel.pdf_sample_ref(bins, cdf, u, eps)).abs().max())
         rows.append({"kernel": "pdf_sample", "rays": u.shape[0], "bins": bins.shape[1], "draws": u.shape[1],
@@ -733,7 +763,7 @@ def _online_slam(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0
     mapper = slam.mapper
     kfs = mapper.kf_manager.keyframes
     # the schedule's steps for each optimization pass (one per keyframe)
-    expected_steps = sum(p.num_iterations for i in range(1, len(kfs) + 1) for p in mapper._phases_for_kf(i))
+    expected_steps = _schedule_steps(mapper.cfg.schedule, len(kfs))
     # the hash-off train step: B1-B3 once per step, the hash kernels never
     launches = _check_launches("online SLAM", wrappers, {k: expected_steps for k in PATH_KERNELS})
     track_ms = np.asarray(slam.tracker.track_times) * 1e3
@@ -1012,6 +1042,355 @@ def _bench(wrappers) -> dict:
     return res
 
 
+def _schedule_steps(schedule, n_passes: int) -> int:
+    """The train steps of ``n_passes`` optimization passes of a keyframe
+    schedule."""
+    from loner_tpu_torch.mapping.mapper import phases_for_pass
+
+    return sum(p.num_iterations for i in range(1, n_passes + 1) for p in phases_for_pass(schedule, i))
+
+
+def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0), n_poses: int = 126,
+                      n_channels: int = 32, n_azimuth: int = 512, changes=None) -> dict:
+    """Loop closure at the reference operating point: the online half of
+    scripts/exp_quality_flagship.py through the port's ``run_slam.run_trial``.
+    One 31 m lap at 10 Hz (126 scans, radius 5 m, period 12.6 s, 32 x 512
+    returns, noise 0.01) written by ``write_synthetic_dataset``,
+    cfg/defaults.yaml with ray range (1, 40), scan budget 16384, motion
+    compensation off, loop closure on and TEMPORAL keyframes 0.75 s apart
+    (QUALITY_r05.json's ``keyframe_spacing_s``). Every launch count is set
+    to 0 just before the run and read just after: B1-B3 once per train step,
+    the steps those of the schedule. Fails on no loop closure, or an
+    estimated ATE at or over the tracking-only ATE or 0.1 m. Then the
+    refinement's pose-graph solve again on the CPU from the same factors:
+    the poses within 1e-4 of the card's."""
+    import numpy as np
+
+    from loner_tpu_torch import run_slam
+    from loner_tpu_torch.analysis.metrics import ate_rmse
+    from loner_tpu_torch.config.build import build_schedule
+    from loner_tpu_torch.config.settings import load_settings
+    from loner_tpu_torch.data.dataset import SequenceDataset, write_synthetic_dataset
+    from loner_tpu_torch.mapping import loop_closure
+    from loner_tpu_torch.runtime.trajectory_logger import load_tum
+
+    seq, run_dir = out_dir / "lc_seq", out_dir / "lc_run"
+    t0 = time.perf_counter()
+    write_synthetic_dataset(str(seq), n_poses=n_poses, radius=5.0, period=n_poses / 10.0, n_channels=n_channels,
+                            n_azimuth=n_azimuth, noise_std=0.01)
+    settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
+        "data": {"ray_range": [1, 40], "scan_points_budget": 16384},
+        "system": {"loop_closure": {"enabled": True}},
+        "tracker": {"motion_compensation": {"enabled": False}},
+        "mapper": {"keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 0.75}}}},
+    })
+    if changes:
+        settings = settings.augment(changes)
+    dataset = SequenceDataset(str(seq), pad_to=16384)
+    setup_s = time.perf_counter() - t0
+
+    # the refinement's solve, recorded with its inputs
+    solve, solves = loop_closure.solve_pose_graph, []
+
+    def recording_solve(poses6, factors, **kw):
+        out = solve(poses6, factors, **kw)
+        solves.append((poses6.clone(), factors, kw, out[0].clone()))
+        return out
+
+    for w in wrappers:
+        w.launches = 0
+    loop_closure.solve_pose_graph = recording_solve
+    try:
+        t0 = time.perf_counter()
+        ate_est = run_slam.run_trial(settings, dataset, str(run_dir), use_gt=False, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        loop_closure.solve_pose_graph = solve
+    timing = np.atleast_2d(np.loadtxt(run_dir / "timing.csv", delimiter=",", skiprows=1))
+    steps = int(timing[:, 1].sum())
+    n_kfs = len(np.atleast_2d(np.loadtxt(run_dir / "trajectory" / "keyframe_trajectory.txt")))
+    expected_steps = _schedule_steps(build_schedule(settings), n_kfs)
+    launches = _check_launches("loop closure leg", wrappers, {k: steps for k in PATH_KERNELS})
+    gt_rel = np.linalg.inv(dataset.gt_poses[0])[None] @ dataset.gt_poses
+    track, t_track = load_tum(str(run_dir / "trajectory" / "tracking_only.txt"))
+    ate_track = float(ate_rmse(track, gt_rel, t_track, dataset.gt_times)["rmse"])
+    ba = json.loads((run_dir / "ba_info.json").read_text())
+    track_ms = np.loadtxt(run_dir / "track_times.csv") * 1e3
+
+    # the same solve on the CPU, from the same factors and priors
+    if len(solves) != 1:
+        raise AssertionError(f"loop closure leg: {len(solves)} pose-graph solves, expected 1")
+    p6, factors, kw, refined_card = solves[0]
+    refined_cpu, cost_cpu = solve(p6.cpu(), factors, **kw)
+    pg_err = float((refined_card.cpu() - refined_cpu).abs().max())
+    res = {"sequence_write_s": setup_s, "wall_s": wall_s, "scans": len(dataset), "keyframes": n_kfs,
+           "train_steps": steps, "expected_steps": expected_steps, "launches": launches,
+           "ate_tracking_only_m": ate_track, "ate_estimated_m": float(ate_est), "ba_info": ba,
+           "windows_its_per_s": [float(x) for x in timing[:, 2]], "track_ms_median": float(np.median(track_ms)),
+           "pose_graph_card_vs_cpu": pg_err, "pose_graph_keyframes": int(p6.shape[0]),
+           "jax_quality_r05": {"ate_tracking_only_m": 0.1455, "ate_estimated_m": 0.0298}}
+    print(f"loop closure leg: {len(dataset)} scans written in {setup_s:.1f} s, run {wall_s:.1f} s; {n_kfs} keyframes, "
+          f"{steps} train steps (schedule {expected_steps}); tracking-only ATE {ate_track:.4f} m, estimated ATE "
+          f"{float(ate_est):.4f} m (the JAX package's run on a TPU v5e, QUALITY_r05.json: 0.1455 / 0.0298 m, a "
+          f"quality figure); ba_info {ba}; windows {[round(x, 2) for x in res['windows_its_per_s']]} its/s, "
+          f"tracking median {res['track_ms_median']:.2f} ms; pose graph card against CPU: max abs diff "
+          f"{pg_err:.3e} over {int(p6.shape[0])} poses (bound 1e-4)", flush=True)
+    if steps != expected_steps:
+        raise AssertionError(f"loop closure leg: {steps} train steps, the schedule gives {expected_steps}")
+    if ba["n_loop_closures"] < 1:
+        raise AssertionError(f"loop closure leg: no loop closure ({ba})")
+    if not (math.isfinite(ate_est) and ate_est < ate_track and ate_est < 0.1):
+        raise AssertionError(f"loop closure leg: estimated ATE {ate_est:.4f} m against tracking-only "
+                             f"{ate_track:.4f} m (gates: under both it and 0.1 m)")
+    if not pg_err <= 1e-4:
+        raise AssertionError(f"loop closure leg: the pose graph on the card and the CPU differ by {pg_err}")
+    # the sequence (about 40 MB) and the state checkpoints are deleted:
+    # chiprun_out/ keeps small files (the CLI drive keeps a full run directory)
+    shutil.rmtree(seq)
+    shutil.rmtree(run_dir / "checkpoints")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _camera_card_vs_cpu(mcfg, cube, state, win, n_rays: int, dev) -> dict:
+    """One camera step on the card and on the CPU from one state with the
+    same draws (made on the CPU), with the MLP in bf16 (the leg's) and in
+    f32; and the field part of the step (render, camera loss, intensity
+    gradients) on both devices from the same rays and samples, built on the
+    CPU. Every intensity gradient must agree within 2^-8 of its largest
+    entry, and every loss within 1e-5 relative but the whole bf16 step's:
+    there the rays and samples each device builds differ by ulps (sin, cos
+    and small products round differently), which moves some MLP operands
+    across a bf16 rounding boundary, and the camera loss, a small residual
+    of colours near their targets, moves by up to a bf16 ulp of the colours
+    (measured 1.3e-5 and 5.2e-5 relative; 2.0e-7 from the same rays and
+    samples, 1.0e-6 with the f32 MLP): it is held to 2^-8 relative."""
+    from loner_tpu_torch.mapping import camera_optimizer as cam
+    from loner_tpu_torch.mapping.optimizer import tree_leaves, tree_map
+    from loner_tpu_torch.models import losses, rendering, sampling
+
+    cpu = torch.device("cpu")
+    draws = cam.draw_camera_step(mcfg, win, n_rays, torch.Generator().manual_seed(2), cpu)
+    on = {"card": (dev, cube, state, win), "cpu": (cpu, cube.to(cpu), tree_map(lambda t: t.to(cpu), state),
+                                                cam.CameraWindow(*(t.to(cpu) for t in win)))}
+    with torch.no_grad():
+        bundle, target = cam._sample_camera_rays(on["cpu"][3], on["cpu"][1], mcfg, draws.bi, draws.yi, draws.xi)
+        z = sampling.occ_grid_sampler_z_vals(bundle, on["cpu"][2].occ_grid, mcfg.n_samples_train, mcfg.perturb,
+                                             draws.u_strat, draws.u_pdf)
+
+    def field(cfg, d, st):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(st.params["intensity"])]
+        it = iter(leaves)
+        params = {"sigma": st.params["sigma"], "intensity": tree_map(lambda _: next(it), st.params["intensity"])}
+        b = type(bundle)(*(t.to(d) for t in bundle))
+        render = rendering.render_rays(params, b, z.to(d), cfg.nerf, draws.enc_key.to(d), sigma_only=False,
+                                       key_intensity=draws.enc_key_intensity.to(d))
+        loss, _ = losses.compute_camera_loss(render, target.to(d), b.valid, cfg.loss)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = mcfg._replace(nerf=mcfg.nerf._replace(compute_dtype=dtype))
+        out = {}
+        for name, (d, c, st, w) in on.items():
+            _, aux = cam.make_camera_train_step(cfg, c, n_rays, device=d)(
+                st, w, cam.CameraDraws(*(t.to(d) for t in draws)))
+            out["step", name] = float(aux["loss"]), tree_leaves(aux["grads"]["intensity"])
+            loss, grads = field(cfg, d, st)
+            out["field", name] = float(loss.detach()), list(grads)
+        for part in ("step", "field"):
+            (l_card, g_card), (l_cpu, g_cpu) = out[part, "card"], out[part, "cpu"]
+            g_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g_card, g_cpu))
+            g_scale = max(float(b.abs().max()) for b in g_cpu)
+            rows[f"{part}, {dtype} MLP"] = {"loss_card": l_card, "loss_cpu": l_cpu,
+                                            "loss_rel": abs(l_card - l_cpu) / abs(l_cpu), "grad_max_abs": g_err,
+                                            "grad_scale": g_scale, "grad_share": g_err / g_scale}
+    print("camera leg, one camera step on the card against the CPU (loss bound 1e-5 relative, the whole bf16 "
+          "step's 2^-8; gradients 2^-8 of their largest entry): " + "; ".join(
+              f"{k}: loss {r['loss_card']:.7f} / {r['loss_cpu']:.7f} (relative {r['loss_rel']:.3e}), gradients "
+              f"max abs diff {r['grad_max_abs']:.3e} of {r['grad_scale']:.3e}" for k, r in rows.items()), flush=True)
+    loss_bound = {k: 2.0**-8 if k == "step, bfloat16 MLP" else 1e-5 for k in rows}
+    bad = {k: r for k, r in rows.items() if not (r["loss_rel"] <= loss_bound[k] and r["grad_share"] <= 2.0**-8)}
+    if bad:
+        raise AssertionError(f"camera leg: card and CPU camera steps differ: {bad}")
+    return rows
+
+
+def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0), height: int = 360,
+                width: int = 640, n_channels: int = 32, n_azimuth: int = 512, pad_to: int = 16384,
+                n_rays: int = 1024, changes=None) -> dict:
+    """The camera phase at full width: LonerSLAM from cfg/defaults.yaml
+    (ray range (1, 40), motion compensation off; its field of 3 colours, SH
+    degree 4 and a 64 x 4 intensity MLP, with the MLP in bf16) on the
+    48-pose loop of phase 3c, with ``OnlineCameraConfig(enabled=True,
+    iterations_per_window=20, n_rays=1024)``. One 640 x 360 image (the HPK
+    camera's size) after each scan, stamped inside its interval, rendered
+    by ``render_intensity_image`` with ``write_synthetic_images``' intrinsics
+    and extrinsics and tiled to 3 channels. Every launch count is set to 0
+    just before the run and read just after: per lidar step B1-B3 once, per
+    camera step B1 twice per point chunk (sigma and intensity), B2 once per
+    chunk (the intensity lines), B3 once. Fails on fewer than 3 keyframes
+    with images, a skipped (non-finite) step, or a trained intensity branch
+    whose masked camera L1 is not under 0.8x a fresh branch's on the same
+    rays and samples. Then a camera step's time and profile
+    (chiprun_out/camera_step_profile.txt), B1-B3 held against their plain
+    versions on one camera step's inputs, and one camera step on the card
+    against the CPU from one state with the same draws
+    (``_camera_card_vs_cpu``)."""
+    import numpy as np
+
+    from loner_tpu_torch.config.build import build_slam_config
+    from loner_tpu_torch.config.settings import load_settings
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
+    from loner_tpu_torch.geometry.world_cube import compute_world_cube
+    from loner_tpu_torch.mapping import camera_optimizer as cam
+    from loner_tpu_torch.mapping.mapper import OnlineCameraConfig
+    from loner_tpu_torch.models import losses, nerf, rendering, sampling
+    from loner_tpu_torch.ops import cp_kernel
+    from loner_tpu_torch.slam import LonerSLAM
+
+    ray_range = (1.0, 40.0)
+    settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
+        "data": {"ray_range": list(ray_range)}, "tracker": {"motion_compensation": {"enabled": False}}})
+    if changes:
+        settings = settings.augment(changes)
+    scene = synthetic.Scene.default()
+    poses, ts = synthetic.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
+    gt = np.linalg.inv(poses[0])[None] @ poses
+    cube = compute_world_cube(poses, ray_range=ray_range, rebase_to_first_pose=True)
+    # write_synthetic_images' camera: looking along +x of the lidar
+    K = np.array([[width / 2, 0, width / 2], [0, width / 2, height / 2], [0, 0, 1.0]])
+    t_lc = np.eye(4)
+    t_lc[:3, :3] = np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+    cfg = build_slam_config(settings, cube.scale_factor)
+    mcfg = cfg.mapper.mapper._replace(nerf=cfg.mapper.mapper.nerf._replace(compute_dtype="bfloat16"))
+    cfg.mapper.mapper = mcfg
+    cfg.mapper.camera = OnlineCameraConfig(enabled=True, K=K, lidar_to_camera=t_lc, iterations_per_window=20,
+                                           n_rays=n_rays)
+    t0 = time.perf_counter()
+    frames = []
+    for T, t in zip(poses, ts):
+        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t, n_channels=n_channels, n_azimuth=n_azimuth,
+                                                           max_range=ray_range[1])
+        img, _ = synthetic.render_intensity_image(scene, T @ t_lc, K, height, width, ray_range[1])
+        frames.append((make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=pad_to),
+                       sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t, pad_to=cfg.mapper.n_sky_pad),
+                       np.repeat(img, 3, axis=-1), float(np.median(stamps[hit]))))
+    setup_s = time.perf_counter() - t0
+    print(f"camera leg: {len(frames)} scans and {height} x {width} images ray-cast on the host in {setup_s:.1f} s",
+          flush=True)
+
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    slam = LonerSLAM(cfg, cube, device=dev)
+    for (scan, sky, img, t_mid), t, g in zip(frames, ts, gt):
+        slam.process_scan(scan, t, gt_pose=g, sky=sky)
+        slam.process_image(img, t_mid)
+    slam.stop(str(out_dir / "camera_slam"))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    mapper = slam.mapper
+    kfs = mapper.kf_manager.keyframes
+    lidar_steps = mapper._host_step
+    cam_steps = int(mapper.state.global_step) - lidar_steps
+    expected_lidar = _schedule_steps(cfg.mapper.schedule, len(kfs))
+    # every image arrives after its scan's pass: every pass but the first has
+    # an image in its window
+    expected_cam = cfg.mapper.camera.iterations_per_window * (len(kfs) - 1)
+    n = n_rays * mcfg.n_samples_train
+    chunks = mcfg.nerf.point_chunks if mcfg.nerf.point_chunks > 1 and n % mcfg.nerf.point_chunks == 0 else 1
+    launches = _check_launches("camera leg", wrappers, {
+        "cp_fwd": lidar_steps * mcfg.train_point_chunks + cam_steps * 2 * chunks,
+        "cp_bwd": lidar_steps * mcfg.train_point_chunks + cam_steps * chunks,
+        "pdf_sample": lidar_steps + cam_steps})
+    attach = json.loads((out_dir / "camera_slam" / "camera_attach.json").read_text())
+    n_img = sum(1 for k in kfs if k.image is not None)
+    windows = [{"ms": dt * 1e3, "iterations": it, "its_per_s": it / dt} for dt, it in mapper.window_timer.rows]
+    print(f"camera leg: {len(frames)} frames in {wall_s:.1f} s; keyframes at {[k.timestamp for k in kfs]}, "
+          f"{n_img} with images; images attached {attach['attached']}, dropped {attach['dropped']}; "
+          f"{lidar_steps} lidar steps (schedule {expected_lidar}), {cam_steps} camera steps (expected {expected_cam}) "
+          f"of {n_rays} rays x {mcfg.n_samples_train} samples in {chunks} point chunks", flush=True)
+    if n_img < 3 or lidar_steps != expected_lidar or cam_steps != expected_cam or int(mapper.state.skipped_steps):
+        raise AssertionError(f"camera leg: {n_img} keyframes with images, {lidar_steps} lidar and {cam_steps} "
+                             f"camera steps, {int(mapper.state.skipped_steps)} skipped")
+
+    # the trained intensity branch against a fresh one, on the same rays and samples
+    state = mapper.state
+    img_kfs = [k for k in kfs if k.image is not None][:cfg.mapper.keyframe_manager.window_size]
+    win = cam.stack_camera_window(np.stack([k.image for k in img_kfs]), np.ones((len(img_kfs), height, width), bool),
+                                  np.stack([mapper.optimized_pose(k) @ t_lc for k in img_kfs]), K, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_eval = 2048
+    bi, yi, xi = (torch.randint(0, m, (n_eval,), generator=gen, device=dev) for m in (len(img_kfs), height, width))
+    with torch.no_grad():
+        bundle, target = cam._sample_camera_rays(win, mapper.cube, mcfg, bi, yi, xi)
+        z = sampling.occ_grid_sampler_z_vals(bundle, state.occ_grid, mcfg.n_samples_train, 0.0, None, torch.rand(
+            (n_eval, mcfg.n_samples_train // 2), generator=gen, device=dev))
+
+        def cam_l1(params):
+            render = rendering.render_rays(params, bundle, z, mcfg.nerf, sigma_only=False)
+            return float(losses.compute_camera_loss(render, target, bundle.valid, mcfg.loss)[1]["cam_l1"])
+
+        fresh = nerf.init_nerf(torch.Generator(device=dev).manual_seed(123), mcfg.nerf, dev)["intensity"]
+        l1_trained = cam_l1(state.params)
+        l1_fresh = cam_l1({"sigma": state.params["sigma"], "intensity": fresh})
+    print(f"camera leg: masked camera L1 {l1_trained:.4f} trained, {l1_fresh:.4f} fresh "
+          f"(ratio {l1_trained / l1_fresh:.3f}, gate 0.8)", flush=True)
+    if not (math.isfinite(l1_trained) and l1_trained < 0.8 * l1_fresh):
+        raise AssertionError(f"camera leg: trained L1 {l1_trained} not under 0.8x the fresh {l1_fresh}")
+
+    # a camera step: host-clock ms after synchronize, then a profile
+    step = cam.make_camera_train_step(mcfg, mapper.cube, n_rays, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(1))
+    box, times, step_losses = {"state": state}, [], []
+
+    def run_once():
+        box["state"], aux = step(box["state"], win)
+        return aux
+
+    for _ in range(6):
+        t = time.perf_counter()
+        aux = run_once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        step_losses.append(float(aux["loss"]))
+    step_ms = sum(times[1:]) / len(times[1:])
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError(f"camera leg: non-finite camera loss {step_losses}")
+    prof = (_profile(run_once, 5, step_ms, out_dir / "camera_step_profile.txt", "camera step")
+            if dev.type == "cuda" else None)
+    print(f"camera leg: a camera step {step_ms:.3f} ms (host clock, synchronized; first {times[0]:.1f} ms), "
+          f"device busy {prof['busy_ms'] if prof else float('nan'):.3f} ms; losses {step_losses}", flush=True)
+
+    # B1-B3 on the inputs one camera step gives them
+    cp_in, bwd_in, pdf_in = {}, {}, {}
+    with _first_inputs(cp_kernel, "cp_fwd", cp_in), _first_inputs(cp_kernel, "cp_bwd", bwd_in), \
+            _first_inputs(sampling, "pdf_sample", pdf_in):
+        step(box["state"], win)
+    met = _check_met_inputs("camera leg", cp_in, pdf_in, bwd_in)
+    del cp_in, bwd_in, pdf_in
+
+    # one camera step on the card and on the CPU from one state, the same draws
+    versus = _camera_card_vs_cpu(mcfg, mapper.cube, box["state"], win, n_rays, dev)
+    res = {"setup_s": setup_s, "wall_s": wall_s, "image_size": [height, width], "keyframes": [k.timestamp for k in kfs],
+           "keyframes_with_images": n_img, "attach": attach, "lidar_steps": lidar_steps, "camera_steps": cam_steps,
+           "point_chunks": chunks, "launches": launches, "windows": windows, "l1_trained": l1_trained,
+           "l1_fresh": l1_fresh, "camera_step_ms": step_ms, "camera_step_ms_all": times, "camera_step_profile": prof,
+           "kernels_on_met_inputs": met, "card_vs_cpu": versus}
+    del slam, mapper, state, box, win
+    shutil.rmtree(out_dir / "camera_slam" / "checkpoints")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible; nothing was run")
@@ -1264,6 +1643,14 @@ def main() -> None:
         r.update(cli_launches=cli["launches"][r["name"]], offline_launches=offline["launches"][r["name"]],
                  bench_launches=bench_res["launches"][r["name"]])
 
+    # ---- 3e: loop closure at the reference operating point; 3f: the
+    # camera phase at full width ---------------------------------------------
+    root = Path(__file__).resolve().parent
+    loop = _loop_closure_leg(root, out_dir, wrappers, dev)
+    camera = _camera_leg(root, out_dir, wrappers, dev)
+    for r in report[:3]:
+        r.update(loop_closure_launches=loop["launches"][r["name"]], camera_launches=camera["launches"][r["name"]])
+
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
     # bf16 MLP an operand on a rounding boundary can also round one bf16 ulp
@@ -1290,7 +1677,7 @@ def main() -> None:
                                   whole_step_gated=k != "fused", hash_scale=1e3)
 
     summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
-               "bench": bench_res, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "bench": bench_res, "loop_closure": loop, "camera": camera, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -12,7 +12,12 @@ either package reads in the other:
       poses_gt.tum       # optional ground truth, TUM format
       meta.yaml          # ray_range, scan_period, name
 
-Camera sequences (``ImageSequence``) come with the camera slice.
+A camera track (``ImageSequence``, ``write_synthetic_images``) sits beside
+the scans in the same root:
+
+    dataset/
+      images/000000.npz   # image (H,W,C) float32 [0,1], timestamp, optional mask
+      calibration.yaml    # CameraCalibration.as_dict()
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 import yaml
 
 from loner_tpu_torch.data import synthetic
+from loner_tpu_torch.data.calibration import CameraCalibration, _distort_normalized, load_calibration_yaml
 from loner_tpu_torch.data.scan import LidarScan, make_lidar_scan
 from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.runtime.trajectory_logger import dump_tum, load_tum
@@ -149,4 +155,114 @@ def write_synthetic_dataset(
         yaml.safe_dump(
             {"ray_range": [1.0, float(max_range)], "scan_period": period / n_poses, "name": "synthetic"}, f
         )
+    return root
+
+
+class ImageSequence:
+    """Iterates (image, mask, timestamp) over on-disk images:
+
+        dataset/
+          images/000000.npz   # image (H,W,C) float32 [0,1], timestamp,
+                              # optional mask (H,W) bool (True = trainable)
+          calibration.yaml    # CameraCalibration.as_dict()
+
+    The format is the JAX package's, so that either package reads what the
+    other wrote. Images are undistorted on load, by nearest-neighbour
+    remapping, when the calibration carries distortion.
+    """
+
+    def __init__(self, root: str, undistort: bool = True):
+        self.root = root
+        self.image_dir = os.path.join(root, "images")
+        self.files = sorted(
+            f for f in os.listdir(self.image_dir) if f.endswith(".npz")
+        )
+        self.calibration = load_calibration_yaml(os.path.join(root, "calibration.yaml"))
+        self._undistort = undistort and np.any(self.calibration.distortion)
+        self._remap = None
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _undistort_image(self, img: np.ndarray) -> np.ndarray:
+        """Nearest-neighbor rectification via the inverse distortion map."""
+        c = self.calibration
+        if self._remap is None:
+            h, w = c.height, c.width
+            ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+            nK = c.new_K
+            x = (xs.ravel() + 0.5 - nK[0, 2]) / nK[0, 0]
+            y = (ys.ravel() + 0.5 - nK[1, 2]) / nK[1, 1]
+            d = _distort_normalized(np.stack([x, y], -1), c.distortion)
+            sx = np.clip(d[:, 0] * c.K[0, 0] + c.K[0, 2], 0, w - 1).astype(np.int64)
+            sy = np.clip(d[:, 1] * c.K[1, 1] + c.K[1, 2], 0, h - 1).astype(np.int64)
+            self._remap = (sy.reshape(h, w), sx.reshape(h, w))
+        sy, sx = self._remap
+        return img[sy, sx]
+
+    def load(self, i: int):
+        with np.load(os.path.join(self.image_dir, self.files[i])) as z:
+            img = np.asarray(z["image"], np.float32)
+            if img.ndim == 2:
+                img = img[..., None]
+            if img.max() > 1.5:  # uint8-scaled input
+                img = img / 255.0
+            ts = float(z["timestamp"])
+            mask = (
+                np.asarray(z["mask"], bool)
+                if "mask" in z
+                else np.ones(img.shape[:2], bool)
+            )
+        if self._undistort:
+            img = self._undistort_image(img)
+            mask = self._undistort_image(mask)
+        return img, mask, ts
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.load(i)
+
+    @property
+    def K(self) -> np.ndarray:
+        """Intrinsics valid for the (possibly rectified) returned images."""
+        return self.calibration.new_K if self._undistort else self.calibration.K
+
+
+def write_synthetic_images(
+    root: str,
+    scene: Optional[synthetic.Scene] = None,
+    n_poses: int = 48,
+    radius: float = 5.0,
+    period: float = 9.6,
+    height: int = 48,
+    width: int = 64,
+    max_range: float = 40.0,
+) -> str:
+    """Add a camera track (images + calibration.yaml) to a dataset root,
+    rendered from the synthetic scene's intensity texture. The camera rides
+    the lidar poses (identity extrinsics)."""
+    scene = scene or synthetic.Scene.default()
+    poses, ts = synthetic.circular_trajectory(n_poses, radius, period=period)
+    K = np.array(
+        [[width / 2, 0, width / 2], [0, width / 2, height / 2], [0, 0, 1.0]]
+    )
+    # camera looks forward: z_cam = +x_lidar, x_cam = -y_lidar, y_cam = -z_lidar
+    T_lc = np.eye(4)
+    T_lc[:3, :3] = np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i, (T, t0) in enumerate(zip(poses, ts)):
+        img, hit = synthetic.render_intensity_image(
+            scene, T @ T_lc, K, height, width, max_range
+        )
+        np.savez_compressed(
+            os.path.join(root, "images", f"{i:06d}.npz"),
+            image=img,
+            timestamp=np.float64(t0),
+            mask=hit,
+        )
+    calib = CameraCalibration(
+        K=K, distortion=np.zeros(5), width=width, height=height, lidar_to_camera=T_lc
+    )
+    with open(os.path.join(root, "calibration.yaml"), "w") as f:
+        yaml.safe_dump(calib.as_dict(), f)
     return root

@@ -1,7 +1,8 @@
-"""Lidar ray construction in world-cube coordinates.
+"""Lidar and camera ray construction in world-cube coordinates.
 
 The port of ``loner_tpu/geometry/rays.py`` (``RayBundle``, ``far_cube_exit``,
-``build_lidar_rays``). Rays that exit the cube too early are masked invalid
+``build_lidar_rays``, ``build_camera_rays``, ``camera_ray_directions``).
+Rays that exit the cube too early are masked invalid
 rather than dropped, so batches keep static shapes. ``build_lidar_rays`` is
 differentiable through the pose and takes leading batch dimensions (one pose
 per scan of a window).
@@ -74,3 +75,35 @@ def build_lidar_rays(
     if point_valid is not None:
         valid = valid & point_valid
     return RayBundle(origins, dirs_world, viewdirs, near, far, valid, depths)
+
+
+def build_camera_rays(
+    directions_cam: torch.Tensor,  # (N, 3) pixel ray directions, camera frame
+    camera_pose: torch.Tensor,  # (4, 4) world_T_camera, metric
+    world_cube,
+    ray_range: Tuple[float, float],
+) -> RayBundle:
+    """Camera rays: view directions are the normalized directions
+    themselves (not their negation, as for lidar), depth 0."""
+    n = directions_cam.shape[0]
+    scale = world_cube.scale_factor
+    shift = world_cube.shift.to(device=camera_pose.device, dtype=camera_pose.dtype)
+    origins = ((camera_pose[:3, 3] + shift) / scale).expand(n, 3)
+    dirs_world = directions_cam @ camera_pose[:3, :3].T
+    dirs_world = dirs_world / _safe_norm(dirs_world)
+    near = torch.full((n,), ray_range[0] / scale, dtype=origins.dtype, device=origins.device)
+    far_range = torch.full((n,), ray_range[1] / scale, dtype=origins.dtype, device=origins.device)
+    far = torch.minimum(far_range, far_cube_exit(origins, dirs_world))
+    valid = far > (near + 1.0 / scale)
+    return RayBundle(origins, dirs_world, dirs_world, near, far, valid, torch.zeros_like(near))
+
+
+def camera_ray_directions(h: int, w: int, K: torch.Tensor) -> torch.Tensor:
+    """Pinhole pixel ray directions (H*W, 3), row-major over (y, x), at the
+    integer pixel coordinates (the camera step samples at index + 0.5);
+    distortion is undone on the host before this."""
+    ys = torch.arange(h, dtype=torch.float32, device=K.device)
+    xs = torch.arange(w, dtype=torch.float32, device=K.device)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([(grid_x.reshape(-1) - K[0, 2]) / K[0, 0], (grid_y.reshape(-1) - K[1, 2]) / K[1, 1],
+                        torch.ones(h * w, dtype=torch.float32, device=K.device)], dim=-1)

@@ -43,17 +43,29 @@ def _lidar_view_corners(max_depth: float) -> np.ndarray:
     return np.array([[x, y, z] for x in (-m, m) for y in (-m, m) for z in (-m, m)], dtype=np.float64)
 
 
+def _camera_frustum_corners(K: np.ndarray, h: float, w: float, min_depth: float, max_depth: float) -> np.ndarray:
+    """Corners (8, 3) of the camera's view frustum in camera coordinates."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    pix = np.array([[0.0, 0.0], [w, 0.0], [0.0, h], [w, h]])
+    dirs = np.stack([(pix[:, 0] - cx) / fx, (pix[:, 1] - cy) / fy, np.ones(4)], axis=-1)
+    return np.concatenate([dirs * min_depth, dirs * max_depth], axis=0)
+
+
 def compute_world_cube(
     lidar_poses: Optional[np.ndarray],
     ray_range: Tuple[float, float],
     padding: float = 0.1,
     traj_bounding_box: Optional[dict] = None,
+    camera_to_lidar: Optional[np.ndarray] = None,
+    intrinsic: Optional[np.ndarray] = None,
+    image_size: Optional[Tuple[float, float]] = None,
     rebase_to_first_pose: bool = True,
 ) -> WorldCube:
     """World cube from lidar poses (N, 4, 4) or a trajectory bounding box
-    {"x": [lo, hi], "y": ..., "z": ...}, each padded by the lidar's
-    +-max_range view volume (the camera-frustum variant comes with the camera
-    slice)."""
+    {"x": [lo, hi], "y": ..., "z": ...}: the sensor positions and, per pose,
+    the lidar's +-max_range view volume, or with ``camera_to_lidar``,
+    ``intrinsic`` and ``image_size`` (h, w) the camera positions and their
+    view frustums from min to max range."""
     if not 0 <= padding < 1:
         raise ValueError(f"padding {padding} outside [0, 1)")
     if lidar_poses is None and traj_bounding_box is None:
@@ -71,10 +83,19 @@ def compute_world_cube(
         if rebase_to_first_pose:
             lidar_poses = lidar_poses @ np.linalg.inv(lidar_poses[0])
 
-    corners = _lidar_view_corners(ray_range[1])
+    positions = [lidar_poses[:, :3, 3]]
+    if camera_to_lidar is not None and intrinsic is not None and image_size is not None:
+        camera_poses = lidar_poses @ np.linalg.inv(np.asarray(camera_to_lidar, dtype=np.float64))
+        corners = _camera_frustum_corners(np.asarray(intrinsic, dtype=np.float64), image_size[0], image_size[1],
+                                          ray_range[0], ray_range[1])
+        view_poses = camera_poses
+        positions.append(camera_poses[:, :3, 3])
+    else:
+        corners = _lidar_view_corners(ray_range[1])
+        view_poses = lidar_poses
     corners_h = np.concatenate([corners, np.ones((8, 1))], axis=-1)
-    all_corners = [(p[:3, :] @ corners_h.T).T for p in lidar_poses]
-    all_points = np.concatenate(all_corners + [lidar_poses[:, :3, 3]], axis=0)
+    all_corners = [(p[:3, :] @ corners_h.T).T for p in view_poses]
+    all_points = np.concatenate(all_corners + positions, axis=0)
     min_coord = all_points.min(axis=0)
     max_coord = all_points.max(axis=0)
     origin = min_coord + (max_coord - min_coord) / 2

@@ -29,6 +29,12 @@ class KeyFrame:
     gt_pose: Optional[np.ndarray] = None  # (4, 4) ground truth, if known
     sky: Optional[LidarScan] = None
     is_anchored: bool = False  # the first keyframe anchors the world frame
+    # the camera image matched to this keyframe's scan, attached (possibly
+    # late: the match resolves when the image arrives) by
+    # OnlineMapper.attach_image
+    image: Optional[np.ndarray] = None  # (H, W, C) float32 in [0, 1]
+    image_timestamp: Optional[float] = None
+    image_mask: Optional[np.ndarray] = None  # (H, W) bool: True = trainable (static) pixel
     # MASK ray selection: scan indices in the trunk band, cyclically padded
     # to the scan budget (None -> uniform)
     band_indices: Optional[np.ndarray] = None

@@ -18,8 +18,15 @@ steps, all slicing one permutation drawn at the phase's start; as the JAX
 mapper holds its step key through the phase, the occupancy-corner
 uniforms are drawn there once too, and the other draws afresh each step.
 
-Not ported, and raising ``NotImplementedError``: the online camera phase
-(queue A item 2), a mapper mesh (item 7) and the debug probe dumps (item 4).
+With ``camera.enabled``, images matched to keyframes (``attach_image``)
+train the intensity branch after each lidar pass: ``iterations_per_window``
+camera steps (``camera_optimizer.py``) over the window's keyframes that
+carry an image, at their current optimized poses. Each camera step counts
+in the state's ``global_step``, so ``_host_step`` (the lidar steps) falls
+behind it from the first camera step on.
+
+Not ported, and raising ``NotImplementedError``: a mapper mesh (queue A
+item 5) and the debug probe dumps (item 2).
 """
 from __future__ import annotations
 
@@ -81,16 +88,30 @@ def default_keyframe_schedule(skip_pose_refinement: bool = True) -> List[Schedul
     return [SchedulePhase(1, [IterationPhase(1000, freeze_poses=True)]), SchedulePhase(-1, later)]
 
 
+def phases_for_pass(schedule: List[SchedulePhase], opt_count: int) -> List[IterationPhase]:
+    """The iteration schedule of the opt_count-th optimization pass
+    (1-based), walking the schedule's num_keyframes buckets."""
+    remaining = opt_count
+    for phase in schedule:
+        if phase.num_keyframes == -1 or remaining <= phase.num_keyframes:
+            return phase.iteration_schedule
+        remaining -= phase.num_keyframes
+    return schedule[-1].iteration_schedule
+
+
 @dataclass
 class OnlineCameraConfig:
-    """The online camera phase's configuration (the phase is queue A item 2;
-    ``enabled`` raises)."""
+    """The online camera phase: after each lidar pass, the intensity branch
+    trains from the window's matched images with sigma detached."""
 
     enabled: bool = False
     K: Optional[np.ndarray] = None  # (3, 3) intrinsics
-    lidar_to_camera: Optional[np.ndarray] = None  # (4, 4)
+    lidar_to_camera: Optional[np.ndarray] = None  # (4, 4): camera pose = keyframe pose @ this
     iterations_per_window: int = 20
     n_rays: int = 1024
+    # dynamic-object masking: called with the attached (H, W, C) image, returns
+    # an (H, W) bool mask, True = trainable (static); data/dynamic_mask.py has
+    # sources. None: every pixel trains.
     mask_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
 
@@ -107,21 +128,19 @@ class OnlineMapperConfig:
     checkpoint_dir: Optional[str] = None
     log_losses: bool = False  # per-keyframe, per-phase loss CSVs
     loss_log_dir: Optional[str] = None
-    mesh_device_indices: Optional[List[int]] = None  # queue A item 7
+    mesh_device_indices: Optional[List[int]] = None  # queue A item 5
     camera: OnlineCameraConfig = field(default_factory=OnlineCameraConfig)
     debug: DebugFlags = field(default_factory=DebugFlags)
 
 
 def _check_ported(cfg: OnlineMapperConfig) -> None:
-    if cfg.camera.enabled:
-        raise NotImplementedError("the online camera phase is not ported (ROADMAP.md, queue A item 2)")
     if cfg.mesh_device_indices:
         raise NotImplementedError("mesh_device_indices: a mapper over several cards is not ported "
-                                  "(ROADMAP.md, queue A item 7)")
+                                  "(ROADMAP.md, queue A item 5)")
     dumps = cfg.debug.requested(("draw_rays", "draw_samples", "draw_loss_distribution"))
     if dumps:
         raise NotImplementedError(f"debug {dumps}: the mapper's debug probe dumps wait for "
-                                  "runtime/debug_dump.py (ROADMAP.md, queue A item 4)")
+                                  "runtime/debug_dump.py (ROADMAP.md, queue A item 2)")
 
 
 class OnlineMapper:
@@ -141,6 +160,10 @@ class OnlineMapper:
         self._host_step = 0
         # optimization passes so far: picks the schedule's bucket
         self._opt_count = 0
+        self._camera_step = None  # built on the first window with an image
+        # images matched to a keyframe, and matched to a scan that never became one
+        self.image_attaches = 0
+        self.image_attach_drops = 0
         self.map_times: List[float] = []
         self.window_timer = WindowTimer()
         # callbacks called with (timestamp, tracked_pose, optimized_pose)
@@ -148,14 +171,7 @@ class OnlineMapper:
 
     # ------------------------------------------------------------------
     def _phases_for_kf(self, opt_count: int) -> List[IterationPhase]:
-        """The iteration schedule of the opt_count-th optimization pass
-        (1-based), walking the schedule's num_keyframes buckets."""
-        remaining = opt_count
-        for phase in self.cfg.schedule:
-            if phase.num_keyframes == -1 or remaining <= phase.num_keyframes:
-                return phase.iteration_schedule
-            remaining -= phase.num_keyframes
-        return self.cfg.schedule[-1].iteration_schedule
+        return phases_for_pass(self.cfg.schedule, opt_count)
 
     def _pose_mask(self, window_kfs, latest_only: bool) -> torch.Tensor:
         mask = np.zeros((self.cfg.mapper.max_keyframes,), np.float32)
@@ -228,6 +244,9 @@ class OnlineMapper:
             self._write_loss_csvs(len(self.kf_manager), loss_rows)
         self.window_timer.stop(n_iters)
 
+        if self.cfg.camera.enabled:
+            self._run_camera_phase(window_kfs)
+
         poses_np = self.state.poses.cpu().numpy()
         for cb in self.keyframe_update_callbacks:
             for k in window_kfs:
@@ -236,6 +255,66 @@ class OnlineMapper:
         self._maybe_checkpoint()
         self.map_times.append(time.time() - t0)
         return True
+
+    # ------------------------------------------------------------------
+    # the online camera phase
+    # ------------------------------------------------------------------
+    def attach_image(self, scan, image, image_timestamp: float, scan_timestamp: Optional[float] = None,
+                     mask: Optional[np.ndarray] = None) -> bool:
+        """Attach a matched image to the keyframe of ``scan``, found by the
+        scan's timestamp when given (robust to copies of the scan), else by
+        identity. ``mask`` (or ``camera.mask_fn`` of the image) becomes the
+        keyframe's pixel mask. False, counted in ``image_attach_drops``, if
+        the scan never became a keyframe."""
+        target = None
+        for kf in reversed(self.kf_manager.keyframes):
+            if (scan_timestamp is not None and abs(kf.timestamp - scan_timestamp) < 1e-6) or kf.scan is scan:
+                target = kf
+                break
+        if target is None:
+            self.image_attach_drops += 1
+            return False
+        target.image = np.asarray(image, np.float32)
+        target.image_timestamp = image_timestamp
+        if mask is None and self.cfg.camera.mask_fn is not None:
+            mask = self.cfg.camera.mask_fn(target.image)
+        if mask is not None:
+            target.image_mask = np.asarray(mask, bool)
+        self.image_attaches += 1
+        return True
+
+    def _run_camera_phase(self, window_kfs) -> int:
+        """The intensity pass over the window's keyframes that carry an
+        image, at their current optimized poses, sigma detached. The batch is
+        static (``window_size`` images): missing slots are copies of the
+        first image with an all-False mask. Returns the steps run."""
+        from loner_tpu_torch.mapping.camera_optimizer import make_camera_train_step, stack_camera_window
+
+        cam = self.cfg.camera
+        kfs = [k for k in window_kfs if k.image is not None]
+        if not kfs or cam.K is None:
+            return 0
+        b = self.cfg.keyframe_manager.window_size
+        t_lc = np.eye(4) if cam.lidar_to_camera is None else np.asarray(cam.lidar_to_camera)
+        poses_np = self.state.poses.cpu().numpy()
+        imgs, masks, cam_poses = [], [], []
+        for k in kfs[:b]:
+            imgs.append(np.asarray(k.image, np.float32))
+            masks.append(np.asarray(k.image_mask, bool) if k.image_mask is not None
+                         else np.ones(k.image.shape[:2], bool))
+            cam_poses.append(pose6_to_matrix(poses_np[k.pose_index]) @ t_lc)
+        while len(imgs) < b:
+            imgs.append(imgs[0])
+            masks.append(np.zeros(imgs[0].shape[:2], bool))
+            cam_poses.append(cam_poses[0])
+        window = stack_camera_window(np.stack(imgs), np.stack(masks), np.stack(cam_poses), np.asarray(cam.K),
+                                     device=self.device)
+        if self._camera_step is None:
+            self._camera_step = make_camera_train_step(self.cfg.mapper, self.cube, n_rays=cam.n_rays,
+                                                       device=self.device, generator=self.generator)
+        for _ in range(cam.iterations_per_window):
+            self.state, _ = self._camera_step(self.state, window)
+        return cam.iterations_per_window
 
     # ------------------------------------------------------------------
     _LOSS_COLS = ("loss", "depth_mse", "los_loss", "opacity_loss", "depth_eps", "js_mean")

@@ -457,15 +457,13 @@ def make_render_fn(cfg: MapperConfig, test: bool = True, sigma_only: bool = True
     generator=None) -> RenderResult`` on ``device``, without gradients:
     ``n_samples_test`` samples per ray (``n_samples_train`` when not
     ``test``), no stratified jitter, OGM or UNIFORM as the config says, the
-    field in ``cfg.nerf.point_chunks`` chunks. OGM's importance half still
-    draws its inverse-CDF uniforms, as the JAX package's render does:
-    ``u_pdf`` (N, S/2), else drawn from ``generator``."""
-    if not sigma_only:
-        raise NotImplementedError("sigma_only=False: the intensity branch comes with the camera phase "
-                                  "(ROADMAP.md, queue A item 2)")
+    field in ``cfg.nerf.point_chunks`` chunks, and the intensity branch's
+    colours too unless ``sigma_only``. OGM's importance half still draws its
+    inverse-CDF uniforms, as the JAX package's render does: ``u_pdf``
+    (N, S/2), else drawn from ``generator``."""
     if render_strategy != "default":
         raise NotImplementedError(f"render_strategy={render_strategy!r} needs composite_peak_adjusted "
-                                  "(ROADMAP.md, queue A item 3)")
+                                  "(ROADMAP.md, queue A item 1)")
     if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
         raise ValueError(f"samples_strategy={cfg.samples_strategy!r}: one of {_SAMPLES_STRATEGIES}")
     dev = resolve_device(device)
@@ -480,6 +478,6 @@ def make_render_fn(cfg: MapperConfig, test: bool = True, sigma_only: bool = True
             z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, 0.0, None, u_pdf)
         else:
             z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, 0.0)
-        return render_rays(params, bundle, z_vals, cfg.nerf)
+        return render_rays(params, bundle, z_vals, cfg.nerf, sigma_only=sigma_only)
 
     return render_fn

@@ -1,8 +1,10 @@
-"""Lidar training loss: truncated-Gaussian line-of-sight targets, the
-JS-divergence dynamic tolerance, depth MSE and opacity.
+"""Training losses: the lidar loss (truncated-Gaussian line-of-sight
+targets, the JS-divergence dynamic tolerance, depth MSE and opacity) and the
+camera phase's L1 intensity loss.
 
 The port of ``loner_tpu/models/losses.py`` (``LossConfig``,
-``get_weights_gt``, the KL/JS helpers, ``compute_lidar_loss``). Every
+``get_weights_gt``, the KL/JS helpers, ``compute_lidar_loss``,
+``compute_camera_loss``). Every
 reduction is mask-aware, so padded and invalid rays drop out.
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ class LossConfig(NamedTuple):
     depth_eps_decay_rate: float = 0.95
     depth_eps_decay_steps: float = 1.0
     depthloss_lambda: float = 0.005
-    cam_lambda: float = 1.0  # the camera loss's weight (the camera slice)
+    cam_lambda: float = 1.0  # the camera loss's weight
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -149,3 +151,10 @@ def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, glo
         "n_valid": torch.sum(valid.to(torch.float32)),
     }
     return loss, aux
+
+
+def compute_camera_loss(render, intensities_gt: torch.Tensor, valid: torch.Tensor, cfg: LossConfig):
+    """The masked L1 intensity loss, scaled by ``cam_lambda``; (loss, aux)."""
+    err = torch.abs(render.rgb - intensities_gt)
+    loss = cfg.cam_lambda * _masked_mean(torch.mean(err, dim=-1), valid)
+    return loss, {"cam_l1": loss}

@@ -9,11 +9,12 @@ The port of ``loner_tpu/models/nerf.py`` for ``encoding_impl`` "triad" and
 
 "triad" is the TriadField (CP lines + Fourier features, and a fat-row hash
 level when ``triad.hash_levels > 0``); "fused" is the FusedHash per-level
-hash encoding sized by the branch's :class:`HashEncodingConfig`. Both
-branches are initialised and carried in the parameters (the mapper's
-optimizer updates both), but this slice evaluates only the sigma branch: the
-intensity forward and the SH encoding come with the camera slice.
-Positions arrive in world-cube coordinates [-1, 1]^3 and map to [0, 1]^3.
+hash encoding sized by the branch's :class:`HashEncodingConfig`. The
+transposed queries keep features leading and the point axis minor:
+``query_sigma_t`` -> (N,), ``query_nerf_t`` -> (num_colors + 1, N) rows
+[colors..., sigma]. With ``detach_sigma`` (the camera phase) the sigma
+branch runs without gradients. Positions arrive in world-cube coordinates
+[-1, 1]^3 and map to [0, 1]^3.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.models.mlp import MLPConfig, init_mlp, mlp_apply_t
+from loner_tpu_torch.models.sh_encoding import sh_encode_t
 from loner_tpu_torch.ops.fused_encoder import FusedHashConfig, fused_hash_encode_t, init_fused_table
 from loner_tpu_torch.ops.triad_field import TriadConfig, init_triad, triad_encode_t
 
@@ -112,7 +114,7 @@ def _check_impl(cfg: NeRFConfig) -> None:
     if cfg.encoding_impl not in _PORTED_IMPLS:
         raise NotImplementedError(
             f"encoding_impl={cfg.encoding_impl!r}: only {_PORTED_IMPLS} are ported "
-            "(ROADMAP.md, queue A item 6)"
+            "(ROADMAP.md, queue A item 4)"
         )
 
 
@@ -159,3 +161,35 @@ def query_sigma_t(params: dict, pts_cube_t: torch.Tensor, cfg: NeRFConfig,
     h = _encode_t(cfg, params["sigma"]["table"], pos, cfg.pos_encoding_sigma, key)
     sigma = mlp_apply_t(params["sigma"]["mlp"], h, cfg.sigma_mlp_config())  # (1, N)
     return _sanitize_sigma(sigma[0])
+
+
+def query_nerf_t(params: dict, pts_cube_t: torch.Tensor, viewdirs_t: Optional[torch.Tensor], cfg: NeRFConfig,
+                 sigma_only: bool = False, detach_sigma: bool = True, key: Optional[torch.Tensor] = None,
+                 key_intensity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed query: (1, N) sigma when ``sigma_only``, else
+    (num_colors + 1, N) rows [colors..., sigma]. ``key`` draws the sigma
+    encoder's strided table gradient and ``key_intensity`` the intensity
+    encoder's (the JAX package folds the latter from the former,
+    ``fold_in(key, 1)``; the port takes it as its own draw). With
+    ``detach_sigma`` the sigma branch runs without gradients."""
+    if sigma_only:
+        return query_sigma_t(params, pts_cube_t, cfg, key)[None, :]
+    if detach_sigma:
+        with torch.no_grad():
+            sigma = query_sigma_t(params, pts_cube_t, cfg, key)
+    else:
+        sigma = query_sigma_t(params, pts_cube_t, cfg, key)
+    pos = (pts_cube_t + 1.0) / 2.0
+    h_x = _encode_t(cfg, params["intensity"]["table"], pos, cfg.pos_encoding_intensity, key_intensity)
+    if cfg.enable_view_dependence:
+        h_x = torch.cat([h_x, sh_encode_t(viewdirs_t.T, cfg.sh_degree)], dim=0)
+    color = torch.sigmoid(mlp_apply_t(params["intensity"]["mlp"], h_x, cfg.intensity_mlp_config()))  # (C, N)
+    return torch.cat([color, sigma[None, :]], dim=0)
+
+
+def query_nerf(params: dict, pts_cube: torch.Tensor, viewdirs: Optional[torch.Tensor], cfg: NeRFConfig,
+               sigma_only: bool = False, detach_sigma: bool = True, key: Optional[torch.Tensor] = None,
+               key_intensity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 3) [+ directions (N, 3)] -> (N, 1) or (N, num_colors + 1)."""
+    vt = None if viewdirs is None else viewdirs.T
+    return query_nerf_t(params, pts_cube.T, vt, cfg, sigma_only, detach_sigma, key, key_intensity).T

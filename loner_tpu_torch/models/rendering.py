@@ -1,10 +1,11 @@
 """Volume rendering: alpha compositing of field outputs along rays.
 
-The port of ``loner_tpu/models/rendering.py`` for the train step: the default
-compositing strategy (relu sigma, a 1e10 terminal delta, expected depth with
-the unterminated mass at the far plane, opacity, variance) and a sigma-only
-``render_rays``. The intensity branch and the "adjusted" strategy come with
-later slices.
+The port of ``loner_tpu/models/rendering.py``: the default compositing
+strategy (relu sigma, a 1e10 terminal delta, expected depth with the
+unterminated mass at the far plane, opacity, variance, and the colour rows'
+weighted sums) and ``render_rays`` over the sigma field alone
+(``sigma_only``, the lidar step) or both branches (the camera step). The
+"adjusted" strategy is queue A item 1.
 """
 from __future__ import annotations
 
@@ -12,29 +13,31 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from loner_tpu_torch.models.nerf import NeRFConfig, query_sigma_t
+from loner_tpu_torch.models.nerf import NeRFConfig, query_nerf_t, query_sigma_t
 
 
 class RenderResult(NamedTuple):
-    rgb: torch.Tensor  # (N, 1) dummy (-1) when sigma_only
+    rgb: torch.Tensor  # (N, num_colors), or a (N, 1) dummy (-1) when sigma_only
     depth: torch.Tensor  # (N,)
     weights: torch.Tensor  # (N, S)
     opacity: torch.Tensor  # (N,)
     variance: torch.Tensor  # (N,)
     z_vals: torch.Tensor  # (N, S)
     points: torch.Tensor  # (3, N, S) cube coords, transposed
-    raw: torch.Tensor  # (1, N, S), transposed
+    raw: torch.Tensor  # (C+1, N, S) or (1, N, S), transposed
 
 
 def composite_t(
-    raw_t: torch.Tensor,  # (1, N, S) sigma, channel leading
+    raw_t: torch.Tensor,  # (C+1, N, S), or (1, N, S) when sigma_only: channels leading
     z_vals: torch.Tensor,  # (N, S)
     rays_d: torch.Tensor,  # (N, 3)
     far: Optional[torch.Tensor] = None,  # (N,): depth includes far-plane mass
+    sigma_only: bool = True,
+    num_colors: int = 3,
 ):
-    """(rgb, depth, weights, opacity, variance) of a sigma-only field (the
-    JAX package's ``composite_t(..., sigma_only=True)``)."""
-    sigmas = raw_t[0]
+    """(rgb, depth, weights, opacity, variance). ``rgb`` is (N, num_colors),
+    or a (N, 1) dummy of -1 when ``sigma_only``."""
+    sigmas = raw_t[0] if sigma_only else raw_t[num_colors]
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
     deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], dim=-1)
     # eps-safe norm: padded rays have zero directions; a bare norm gives NaN
@@ -51,27 +54,46 @@ def composite_t(
     depth = torch.sum(weights * z_vals, dim=-1)
     if far is not None:
         depth = depth + (1.0 - opacity) * far
-    rgb = torch.full((sigmas.shape[0], 1), -1.0, dtype=sigmas.dtype, device=sigmas.device)
+    if sigma_only:
+        rgb = torch.full((sigmas.shape[0], 1), -1.0, dtype=sigmas.dtype, device=sigmas.device)
+    else:
+        rgb = torch.einsum("ns,cns->nc", weights, raw_t[:num_colors])
     variance = torch.sum(weights * (depth[:, None] - z_vals) ** 2, dim=-1)
     return rgb, depth, weights, opacity, variance
 
 
+def _chunked(fn, x_t: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """``fn`` over the last axis of ``x_t`` in ``n_chunks`` sequential chunks
+    when that divides it (else in one), the results concatenated on it."""
+    n = x_t.shape[-1]
+    if n_chunks <= 1 or n % n_chunks != 0:
+        return fn(x_t)
+    return torch.cat([fn(c) for c in x_t.chunk(n_chunks, dim=-1)], dim=-1)
+
+
 def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
-                key: Optional[torch.Tensor] = None, point_chunks: Optional[int] = None) -> RenderResult:
-    """Evaluate the sigma field at o + d*z and composite (the JAX package's
-    ``render_rays(..., sigma_only=True)``). The points go to the field in
-    ``point_chunks`` (``cfg.point_chunks`` when None) sequential chunks when
-    that divides them, else in one; ``key`` draws the encoder's strided table
-    gradient."""
+                key: Optional[torch.Tensor] = None, point_chunks: Optional[int] = None, sigma_only: bool = True,
+                detach_sigma: bool = True, key_intensity: Optional[torch.Tensor] = None) -> RenderResult:
+    """Evaluate the field at o + d*z and composite. ``sigma_only`` (the
+    lidar step's render) queries the sigma branch alone; otherwise both
+    branches with the view directions repeated over the samples, the sigma
+    branch without gradients when ``detach_sigma``. The points go to the
+    field in ``point_chunks`` (``cfg.point_chunks`` when None) sequential
+    chunks when that divides them, else in one. ``key`` and
+    ``key_intensity`` draw the encoders' strided table gradients."""
     n, s = z_vals.shape
     if point_chunks is None:
         point_chunks = cfg.point_chunks
     pts_t = bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z_vals[None]  # (3, N, S)
     flat = pts_t.reshape(3, n * s)
-    if point_chunks > 1 and (n * s) % point_chunks == 0:
-        sigma = torch.cat([query_sigma_t(params, c, cfg, key) for c in flat.chunk(point_chunks, dim=1)])
+    if sigma_only:
+        raw_t = _chunked(lambda p: query_sigma_t(params, p, cfg, key), flat, point_chunks).reshape(1, n, s)
     else:
-        sigma = query_sigma_t(params, flat, cfg, key)
-    raw_t = sigma.reshape(1, n, s)
-    rgb, depth, weights, opacity, variance = composite_t(raw_t, z_vals, bundle.directions, far=bundle.far)
+        dirs_t = bundle.viewdirs.T[:, :, None].expand(3, n, s).reshape(3, n * s)
+        raw_t = _chunked(
+            lambda x: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity),
+            torch.cat([flat, dirs_t]), point_chunks,
+        ).reshape(-1, n, s)
+    rgb, depth, weights, opacity, variance = composite_t(raw_t, z_vals, bundle.directions, bundle.far, sigma_only,
+                                                         cfg.num_colors)
     return RenderResult(rgb, depth, weights, opacity, variance, z_vals, pts_t, raw_t)

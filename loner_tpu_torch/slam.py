@@ -8,13 +8,21 @@ seconds ahead of the last mapped frame. The tracker and the mapper run on
 one device; the worker thread enters that device, since torch's current
 device is per thread.
 
-Not ported, and raising ``NotImplementedError``: loop closure (queue A item
-1), camera images (item 2), and the tracker and mapper on disjoint cards
-(item 7).
+In camera mode (``mapper.camera.enabled``) ``process_image`` takes camera
+images: each is matched to the scan whose padded time interval holds it
+(``tracking/frame_synthesis.py``) and attached to that scan's keyframe
+through the same queue as the scans, so a match reaches the mapper after
+its scan. With ``loop_closure.enabled``, ``stop`` refines the keyframe
+poses by a pose graph with ICP loop closures (``mapping/loop_closure.py``)
+before it writes the outputs, and writes ``ba_info.json``.
+
+Not ported, and raising ``NotImplementedError``: the tracker and mapper on
+disjoint cards (queue A item 5).
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import queue
 import threading
@@ -28,32 +36,12 @@ import torch
 from loner_tpu_torch.data.scan import LidarScan, sky_scan
 from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.geometry.world_cube import WorldCube
+from loner_tpu_torch.mapping.keyframe_manager import pose6_to_matrix
+from loner_tpu_torch.mapping.loop_closure import LoopClosureConfig, refine_keyframe_poses
 from loner_tpu_torch.mapping.mapper import OnlineMapper, OnlineMapperConfig
 from loner_tpu_torch.runtime.trajectory_logger import TrajectoryLogger
 from loner_tpu_torch.tracking.frame_synthesis import FrameSynthesis, FrameSynthesisConfig
-from loner_tpu_torch.tracking.icp import IcpConfig, IcpStage
 from loner_tpu_torch.tracking.tracker import Tracker, TrackerConfig
-
-
-@dataclass
-class LoopClosureConfig:
-    """The pose-graph loop closure's configuration (the closure itself is
-    queue A item 1; ``enabled`` raises)."""
-
-    enabled: bool = False
-    min_index_gap: int = 8
-    max_candidate_distance_m: float = 4.0
-    max_candidates: int = 16
-    suppression_radius: int = 1
-    min_fitness: float = 0.35
-    max_rmse: float = 0.3
-    icp: IcpConfig = field(default_factory=lambda: IcpConfig(stages=(IcpStage(1.5, 10), IcpStage(0.25, 10)),
-                                                             n_buckets=1 << 13))
-    target_points: int = 2048
-    odometry_weight: float = 1.0
-    loop_weight: float = 2.0
-    prior_weight: float = 0.01
-    gn_iterations: int = 10
 
 
 @dataclass
@@ -66,17 +54,14 @@ class SlamConfig:
     max_time_delta: float = 3.0
     use_groundtruth_poses: bool = False
     loop_closure: LoopClosureConfig = field(default_factory=LoopClosureConfig)
-    concurrent_device_split: bool = False  # queue A item 7
+    concurrent_device_split: bool = False  # queue A item 5
 
 
 class LonerSLAM:
     def __init__(self, cfg: SlamConfig, cube: WorldCube, out_dir: Optional[str] = None, device="cuda"):
-        if cfg.loop_closure.enabled:
-            raise NotImplementedError("loop_closure.enabled: the pose-graph loop closure is not ported "
-                                      "(ROADMAP.md, queue A item 1)")
         if cfg.concurrent_device_split:
             raise NotImplementedError("concurrent_device_split: tracker and mapper on disjoint cards is not "
-                                      "ported (ROADMAP.md, queue A item 7)")
+                                      "ported (ROADMAP.md, queue A item 5)")
         self.cfg = cfg
         self.cube = cube
         self.out_dir = out_dir
@@ -101,6 +86,7 @@ class LonerSLAM:
         self._stop = threading.Event()
         self._last_mapped_time = 0.0
         self._worker_error: Optional[BaseException] = None
+        self.ba_info: Optional[dict] = None
         if not cfg.single_threaded:
             self._worker = threading.Thread(target=self._mapper_loop, daemon=True)
             self._worker.start()
@@ -115,7 +101,7 @@ class LonerSLAM:
                 except queue.Empty:
                     continue
                 try:
-                    self._map_frame(*item)
+                    self._dispatch(item)
                 except Exception as e:  # raised again by stop()
                     self._worker_error = e
                     break
@@ -124,6 +110,14 @@ class LonerSLAM:
         self.mapper.process_frame(scan, timestamp, pose, gt_pose=gt_pose, sky=sky,
                                   use_gt_pose=self.cfg.use_groundtruth_poses)
         self._last_mapped_time = timestamp
+
+    def _dispatch(self, item):
+        kind, payload = item
+        if kind == "scan":
+            self._map_frame(*payload)
+        else:  # "image": attach a matched image to its scan's keyframe
+            scan, image, t_img, t_scan = payload
+            self.mapper.attach_image(scan, image, t_img, scan_timestamp=t_scan)
 
     # ------------------------------------------------------------------
     def process_scan(self, scan: LidarScan, timestamp: float, gt_pose: Optional[np.ndarray] = None,
@@ -142,24 +136,58 @@ class LonerSLAM:
             sky = sky_scan(result.sky_dirs, self.cfg.mapper.mapper.ray_range[1] + 1.0, timestamp,
                            pad_to=self.cfg.mapper.n_sky_pad)
 
-        item = (result.scan, timestamp, result.pose, gt_pose, sky)
+        item = ("scan", (result.scan, timestamp, result.pose, gt_pose, sky))
         if self.cfg.single_threaded:
-            self._map_frame(*item)
+            self._dispatch(item)
         else:
             # backpressure: stay within max_time_delta of the mapper
             while (timestamp - self._last_mapped_time > self.cfg.max_time_delta and not self._queue.empty()
                    and self._worker_error is None):
                 time.sleep(0.005)
             self._queue.put(item)
+        if self.cfg.mapper.camera.enabled:
+            # the mapped scan waits for its image; the queue's order lets a
+            # match reach the mapper only after its scan
+            self.frame_synthesis.process_scan_for_matching(result.scan, timestamp)
+            self._drain_image_matches()
         return result.pose
 
     def process_image(self, image: np.ndarray, timestamp: float) -> None:
-        raise NotImplementedError("process_image: camera images are not ported (ROADMAP.md, queue A item 2)")
+        """Feed one camera image (H, W, C) in [0, 1]. It is matched to the
+        first scan whose padded time interval holds ``timestamp`` and
+        attached to that scan's keyframe; the mapper trains the intensity
+        branch on the window's images after each lidar pass."""
+        if not self.cfg.mapper.camera.enabled:
+            raise RuntimeError("process_image requires SlamConfig.mapper.camera.enabled")
+        self.frame_synthesis.process_image(np.asarray(image, np.float32), timestamp)
+        self._drain_image_matches()
+
+    def _drain_image_matches(self):
+        while self.frame_synthesis.has_frame():
+            mf = self.frame_synthesis.pop_frame()
+            item = ("image", (mf.scan, mf.image, mf.image_timestamp, mf.scan_timestamp))
+            if self.cfg.single_threaded:
+                self._dispatch(item)
+            else:
+                self._queue.put(item)
+
+    def _refine_keyframes(self) -> None:
+        """Pose-graph refinement of the keyframe poses: the refined poses go
+        into the mapper's state and the trajectory logger."""
+        kfs = self.mapper.kf_manager.keyframes
+        poses_np = self.mapper.state.poses.cpu().numpy()
+        opt = np.stack([pose6_to_matrix(poses_np[k.pose_index]) for k in kfs])
+        refined, self.ba_info = refine_keyframe_poses(kfs, opt, self.cfg.loop_closure, device=self.device)
+        for k, T in zip(kfs, refined):
+            self.mapper._set_pose(k.pose_index, T)
+            self.logger.update_keyframe(k.timestamp, k.tracked_pose, T)
 
     def stop(self, out_dir: Optional[str] = None):
-        """Drain the mapper's queue, stop the worker, and write the output
-        directory: checkpoints, trajectory/*.txt, track_times.csv,
-        map_times.csv and timing.csv."""
+        """Drain the mapper's queue, stop the worker, refine the keyframe
+        poses when loop closure is on (three keyframes or more), and write
+        the output directory: checkpoints, trajectory/*.txt,
+        track_times.csv, map_times.csv, timing.csv, and camera_attach.json
+        and ba_info.json in their modes."""
         if self._worker is not None:
             self._stop.set()
             self._worker.join(timeout=600)
@@ -167,6 +195,10 @@ class LonerSLAM:
                 raise RuntimeError("the mapper thread did not finish its queue within 600 s")
         if self._worker_error is not None:
             raise self._worker_error
+
+        self.ba_info = None
+        if self.cfg.loop_closure.enabled and len(self.mapper.kf_manager) >= 3:
+            self._refine_keyframes()
 
         out_dir = out_dir or self.out_dir
         if out_dir:
@@ -177,3 +209,12 @@ class LonerSLAM:
             np.savetxt(os.path.join(out_dir, "track_times.csv"), np.asarray(self.tracker.track_times), delimiter=",")
             np.savetxt(os.path.join(out_dir, "map_times.csv"), np.asarray(self.mapper.map_times), delimiter=",")
             self.mapper.window_timer.write_csv(os.path.join(out_dir, "timing.csv"))
+            if self.cfg.mapper.camera.enabled:
+                with open(os.path.join(out_dir, "camera_attach.json"), "w") as f:
+                    json.dump({"attached": self.mapper.image_attaches, "dropped": self.mapper.image_attach_drops}, f)
+                if self.mapper.image_attach_drops:
+                    print(f"[slam] WARNING: {self.mapper.image_attach_drops} matched images hit scans that never "
+                          f"became keyframes ({self.mapper.image_attaches} attached)")
+            if self.ba_info is not None:
+                with open(os.path.join(out_dir, "ba_info.json"), "w") as f:
+                    json.dump(self.ba_info, f, indent=1)

@@ -34,7 +34,7 @@ class TrackerConfig:
     sky_segmentation: bool = False
     sky_max_rays: int = 1024
     sky_min_elevation_deg: float = 5.0
-    # pins the tracker to one device of several (ROADMAP queue A item 7)
+    # pins the tracker to one device of several (ROADMAP queue A item 5)
     device_index: Optional[int] = None
     # the debug block's flags (runtime/debug_flags.py); the ICP cloud dumps
     # are not ported
@@ -56,10 +56,10 @@ class Tracker:
         if cfg.device_index is not None:
             raise NotImplementedError(
                 "TrackerConfig.device_index: pinning the tracker to one of several cards is not ported "
-                "(ROADMAP.md, queue A item 7)")
+                "(ROADMAP.md, queue A item 5)")
         if cfg.debug is not None and cfg.debug.requested(("draw_icp_clouds",)):
             raise NotImplementedError(
-                "debug draw_icp_clouds: the ICP cloud dumps wait for runtime/debug_dump.py (ROADMAP.md, queue A item 4)")
+                "debug draw_icp_clouds: the ICP cloud dumps wait for runtime/debug_dump.py (ROADMAP.md, queue A item 2)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._icp = make_icp(cfg.icp, self.device)

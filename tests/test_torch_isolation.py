@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of loner_tpu_torch imports JAX or
 the JAX package, its entry points and public constructors default to the
 card and raise without one (no CPU fallback), the encoders and SLAM
-options not yet ported say so, and every C entry the kernel loader binds
-is defined in the CUDA sources."""
+options not yet ported say so while the ported ones run, and every C entry
+the kernel loader binds is defined in the CUDA sources."""
 import ast
 import importlib
 import os
@@ -22,7 +22,9 @@ from loner_tpu_torch.data import synthetic
 from loner_tpu_torch.data.scan import make_lidar_scan
 from loner_tpu_torch.flagship import flagship
 from loner_tpu_torch.geometry.world_cube import compute_world_cube
+from loner_tpu_torch.mapping import camera_optimizer as tcam
 from loner_tpu_torch.mapping import keyframe as tkf
+from loner_tpu_torch.mapping import loop_closure as tlc
 from loner_tpu_torch.mapping import mapper as tmapper
 from loner_tpu_torch.mapping import optimizer as topt
 from loner_tpu_torch.models import mlp as tmlp
@@ -95,6 +97,15 @@ def test_entry_points_default_to_the_card():
                  lambda: ticp.icp_point_to_plane(torch.zeros((4, 3)), torch.zeros((4, 3)))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # the camera phase and the loop closure
+    ones = np.ones((1, 2, 2, 1), np.float32)
+    for make in (lambda: tcam.make_camera_train_step(cfg, cube),
+                 lambda: tcam.stack_camera_window(ones, ones[..., 0] > 0, np.eye(4)[None], np.eye(3)),
+                 lambda: tcam.optimize_intensity(cfg, cube, None, None),
+                 lambda: tlc.refine_keyframe_poses([], np.zeros((0, 4, 4)), tlc.LoopClosureConfig()),
+                 lambda: tlc.generate_loop_factors([], np.zeros((0, 4, 4)), tlc.LoopClosureConfig())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     # the users' drivers, the run loader and the eval render
     for make in (lambda: run_slam.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
                  lambda: optimize_implicit_map.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
@@ -143,47 +154,81 @@ def _slam(**changes):
 
 # option -> (changes to a small CPU LonerSLAM's config, the message's marker)
 UNPORTED_SLAM = {
-    "camera": ({"mapper.camera.enabled": True}, "item 2"),
-    "loop_closure": ({"loop_closure": LoopClosureConfig(enabled=True)}, "item 1"),
-    "device_split": ({"concurrent_device_split": True}, "item 7"),
-    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 7"),
-    "tracker_device_index": ({"tracker.device_index": 0}, "item 7"),
+    "device_split": ({"concurrent_device_split": True}, "item 5"),
+    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 5"),
+    "tracker_device_index": ({"tracker.device_index": 0}, "item 5"),
     "debug_icp_clouds": ({"mapper.debug": DebugFlags(global_enabled=True, draw_icp_clouds=True)}, "debug_dump"),
     "debug_rays": ({"mapper.debug": DebugFlags(global_enabled=True, draw_rays=True)}, "debug_dump"),
 }
-# options that raised until the offline slice ported them: each now builds
-# and maps one keyframe
+# the online camera phase: a 4 x 6 intrinsics of 2 steps of 32 rays a window
+CAMERA = tmapper.OnlineCameraConfig(enabled=True, K=np.array([[3.0, 0, 3], [0, 3, 2], [0, 0, 1]]),
+                                    iterations_per_window=2, n_rays=32)
+# options that raised until the offline slice (rays, samples) and the loop
+# closure and camera slice (camera, loop_closure) ported them: each now
+# builds and maps one keyframe
 PORTED_SLAM = {
     "rays_mask": {"mapper.mapper.rays_strategy": "MASK"},
     "rays_fixed": {"mapper.mapper.rays_strategy": "FIXED"},
     "samples_uniform": {"mapper.mapper.samples_strategy": "UNIFORM"},
+    "camera": {"mapper.camera": CAMERA},
+    "loop_closure": {"loop_closure": LoopClosureConfig(enabled=True)},
 }
+
+
+def _scan(pose, t):
+    dirs, dists, stamps, hit = synthetic.simulate_scan(synthetic.Scene.default(), pose, t, n_channels=8,
+                                                       n_azimuth=32, max_range=40.0)
+    return make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=128)
 
 
 @pytest.mark.parametrize("option", sorted(PORTED_SLAM))
 def test_ported_options_run(option):
     """A small CPU LonerSLAM with the option maps its first keyframe: finite
     steps, as many as the schedule says (FIXED: one epoch over the padded
-    scan, P // R steps)."""
+    scan, P // R steps). With the camera on, an image attached to that
+    keyframe trains in the next pass, whose camera steps count in
+    ``global_step`` but not in the mapper's lidar steps; with loop closure
+    on, ``stop`` runs (one keyframe: nothing to refine)."""
     small = {"mapper.mapper.rays_per_kf": 16, "mapper.mapper.sky_rays_per_kf": 4, "mapper.mapper.n_samples_train": 16,
              "mapper.schedule": [tmapper.SchedulePhase(1, [tmapper.IterationPhase(3, freeze_poses=True)])]}
     slam = _slam(**small, **PORTED_SLAM[option])
     poses, ts = synthetic.circular_trajectory(n_poses=2, radius=3.0)
-    dirs, dists, stamps, hit = synthetic.simulate_scan(synthetic.Scene.default(), poses[0], ts[0], n_channels=8,
-                                                       n_azimuth=32, max_range=40.0)
-    scan = make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=128)
-    assert slam.mapper.process_frame(scan, 0.0, np.eye(4))
+    assert slam.mapper.process_frame(_scan(poses[0], ts[0]), 0.0, np.eye(4))
     steps = 128 // 16 if option == "rays_fixed" else 3
     assert slam.mapper._host_step == int(slam.mapper.state.global_step) == steps
     assert int(slam.mapper.state.skipped_steps) == 0
+    if option == "camera":
+        kf = slam.mapper.kf_manager.keyframes[0]
+        assert slam.mapper.attach_image(kf.scan, np.full((4, 6, 1), 0.5, np.float32), 0.01)
+        assert slam.mapper.process_frame(_scan(poses[1], 3.5), 3.5, np.eye(4))
+        assert slam.mapper._host_step == 2 * steps
+        assert int(slam.mapper.state.global_step) == 2 * steps + CAMERA.iterations_per_window
+        assert int(slam.mapper.state.opt_intensity.count) == CAMERA.iterations_per_window
+    if option == "loop_closure":
+        slam.stop()
+        assert slam.ba_info is None
 
 
-@pytest.mark.parametrize("impl", ["cell", "packed", "exact", *UNPORTED_SLAM, "process_image"])
+def test_process_image_runs():
+    """``process_image`` in camera mode: the image waits for its scan, is
+    matched to it and attached to its keyframe."""
+    slam = _slam(**{"mapper.camera": CAMERA, "mapper.mapper.rays_per_kf": 16, "mapper.mapper.sky_rays_per_kf": 4,
+                    "mapper.mapper.n_samples_train": 16,
+                    "mapper.schedule": [tmapper.SchedulePhase(1, [tmapper.IterationPhase(2, freeze_poses=True)])],
+                    "tracker.target_points": 64})
+    poses, ts = synthetic.circular_trajectory(n_poses=2, radius=3.0)
+    scan = _scan(poses[0], ts[0])
+    img = np.full((4, 6, 1), 0.5, np.float32)
+    slam.process_image(img, float(np.median(np.asarray(scan.timestamps)[np.asarray(scan.valid)])))
+    assert slam.mapper.image_attaches == 0
+    slam.process_scan(scan, float(ts[0]))
+    kf = slam.mapper.kf_manager.keyframes[0]
+    assert (slam.mapper.image_attaches, slam.mapper.image_attach_drops) == (1, 0)
+    np.testing.assert_array_equal(kf.image, img)
+
+
+@pytest.mark.parametrize("impl", ["cell", "packed", "exact", *UNPORTED_SLAM])
 def test_unported_paths_raise(impl):
-    if impl == "process_image":
-        with pytest.raises(NotImplementedError, match="item 2"):
-            _slam().process_image(None, 0.0)
-        return
     if impl in UNPORTED_SLAM:
         changes, marker = UNPORTED_SLAM[impl]
         with pytest.raises(NotImplementedError, match=marker):

@@ -258,8 +258,9 @@ def test_render_fn_matches_jax(samples):
     """The eval render (n_samples_test, no jitter, point chunks of the field
     config) from the JAX state, with OGM's inverse-CDF uniforms replayed
     from the JAX key: depth within 1e-5, no gradient; no such draw under
-    UNIFORM. The options that need the intensity branch or the adjusted
-    compositing say which queue item holds them."""
+    UNIFORM. With the intensity branch (``sigma_only=False``) the depth is
+    the same and the colours come too; the adjusted compositing says which
+    queue item holds it."""
     jcfg, jcube, jstate, jwin, tcfg, tcube, twin = _tiny(samples)
     jb = jopt.build_window_rays(jstate.poses, jwin, jcube, jcfg, jax.random.split(KEY, 3)[0], 0)
     jout = jopt.make_render_fn(jcfg, test=True)(jstate.params, jstate.occ_grid, jb, KEY)
@@ -271,9 +272,11 @@ def test_render_fn_matches_jax(samples):
     out = render(state.params, state.occ_grid, tb, u_pdf=u)
     assert out.z_vals.shape == (n, tcfg.n_samples_test) and not out.depth.requires_grad
     np.testing.assert_allclose(tp.t2n(out.depth), np.asarray(jout.depth), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        topt.make_render_fn(tcfg, sigma_only=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    colour = topt.make_render_fn(tcfg, test=True, sigma_only=False, device="cpu")(state.params, state.occ_grid, tb,
+                                                                                  u_pdf=u)
+    np.testing.assert_allclose(tp.t2n(colour.depth), tp.t2n(out.depth), rtol=0, atol=0)
+    assert colour.rgb.shape == (n, tcfg.nerf.num_colors) and bool(torch.all((colour.rgb >= 0) & (colour.rgb <= 1)))
+    with pytest.raises(NotImplementedError, match="item 1"):
         topt.make_render_fn(tcfg, render_strategy="adjusted", device="cpu")
 
 

@@ -196,7 +196,7 @@ def test_tracker_defaults_to_the_card_and_refuses_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Tracker(TrackerConfig())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         Tracker(TrackerConfig(device_index=1), device="cpu")
     from loner_tpu_torch.runtime.debug_flags import DebugFlags
 

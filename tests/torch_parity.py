@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from loner_tpu.data import synthetic as jsyn
@@ -294,3 +295,15 @@ def port_slam_config():
     cube = compute_world_cube(poses, ray_range=RAY_RANGE, rebase_to_first_pose=True)
     _, mcfg = mapper_configs(cube.scale_factor)
     return slam_configs(mapper, keyframe_manager, slam, tracker, icp, mcfg), cube
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads while a module that imports this fixture runs:
+    the suite's workers share the host's cores, and more threads a worker
+    only contend (tests/test_torch_camera_slam.py's run took 205 s with 8
+    threads a worker under four workers on 8 cores, 79 s with 2)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
