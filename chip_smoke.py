@@ -1050,8 +1050,7 @@ def _schedule_steps(schedule, n_passes: int) -> int:
     return sum(p.num_iterations for i in range(1, n_passes + 1) for p in phases_for_pass(schedule, i))
 
 
-def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0), n_poses: int = 126,
-                      n_channels: int = 32, n_azimuth: int = 512, changes=None) -> dict:
+def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     """Loop closure at the reference operating point: the online half of
     scripts/exp_quality_flagship.py through the port's ``run_slam.run_trial``.
     One 31 m lap at 10 Hz (126 scans, radius 5 m, period 12.6 s, 32 x 512
@@ -1076,16 +1075,14 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cud
 
     seq, run_dir = out_dir / "lc_seq", out_dir / "lc_run"
     t0 = time.perf_counter()
-    write_synthetic_dataset(str(seq), n_poses=n_poses, radius=5.0, period=n_poses / 10.0, n_channels=n_channels,
-                            n_azimuth=n_azimuth, noise_std=0.01)
+    write_synthetic_dataset(str(seq), n_poses=126, radius=5.0, period=12.6, n_channels=32, n_azimuth=512,
+                            noise_std=0.01)
     settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
         "data": {"ray_range": [1, 40], "scan_points_budget": 16384},
         "system": {"loop_closure": {"enabled": True}},
         "tracker": {"motion_compensation": {"enabled": False}},
         "mapper": {"keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 0.75}}}},
     })
-    if changes:
-        settings = settings.augment(changes)
     dataset = SequenceDataset(str(seq), pad_to=16384)
     setup_s = time.perf_counter() - t0
 
@@ -1103,8 +1100,7 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cud
     try:
         t0 = time.perf_counter()
         ate_est = run_slam.run_trial(settings, dataset, str(run_dir), use_gt=False, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     finally:
         loop_closure.solve_pose_graph = solve
@@ -1150,8 +1146,7 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cud
     # chiprun_out/ keeps small files (the CLI drive keeps a full run directory)
     shutil.rmtree(seq)
     shutil.rmtree(run_dir / "checkpoints")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1160,36 +1155,30 @@ def _camera_card_vs_cpu(mcfg, cube, state, win, n_rays: int, dev) -> dict:
     same draws (made on the CPU), with the MLP in bf16 (the leg's) and in
     f32; and the field part of the step (render, camera loss, intensity
     gradients) on both devices from the same rays and samples, built on the
-    CPU. Every intensity gradient must agree within 2^-8 of its largest
-    entry, and every loss within 1e-5 relative but the whole bf16 step's:
-    there the rays and samples each device builds differ by ulps (sin, cos
-    and small products round differently), which moves some MLP operands
-    across a bf16 rounding boundary, and the camera loss, a small residual
-    of colours near their targets, moves by up to a bf16 ulp of the colours
-    (measured 1.3e-5 and 5.2e-5 relative; 2.0e-7 from the same rays and
-    samples, 1.0e-6 with the f32 MLP): it is held to 2^-8 relative."""
+    CPU (``camera_rays_and_samples``, ``camera_loss_and_grads``: the
+    step's own code). Every intensity gradient must agree within 2^-8 of its
+    largest entry, and every loss within 1e-5 relative but the whole bf16
+    step's: there the rays and samples each device builds differ by ulps
+    (sin, cos and small products round differently), which moves some MLP
+    operands across a bf16 rounding boundary, and the camera loss, a small
+    residual of colours near their targets, moved by 8.2e-6 to 1.27e-4
+    relative over five full-width runs on an H100 (2.0e-7 from the same
+    rays and samples, 1.0e-6 with the f32 MLP): it is held to 5e-4
+    relative, four times the largest reading."""
     from loner_tpu_torch.mapping import camera_optimizer as cam
     from loner_tpu_torch.mapping.optimizer import tree_leaves, tree_map
-    from loner_tpu_torch.models import losses, rendering, sampling
 
     cpu = torch.device("cpu")
     draws = cam.draw_camera_step(mcfg, win, n_rays, torch.Generator().manual_seed(2), cpu)
     on = {"card": (dev, cube, state, win), "cpu": (cpu, cube.to(cpu), tree_map(lambda t: t.to(cpu), state),
                                                 cam.CameraWindow(*(t.to(cpu) for t in win)))}
-    with torch.no_grad():
-        bundle, target = cam._sample_camera_rays(on["cpu"][3], on["cpu"][1], mcfg, draws.bi, draws.yi, draws.xi)
-        z = sampling.occ_grid_sampler_z_vals(bundle, on["cpu"][2].occ_grid, mcfg.n_samples_train, mcfg.perturb,
-                                             draws.u_strat, draws.u_pdf)
+    bundle, target, z = cam.camera_rays_and_samples(mcfg, on["cpu"][1], on["cpu"][3], on["cpu"][2].occ_grid, draws)
 
     def field(cfg, d, st):
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(st.params["intensity"])]
-        it = iter(leaves)
-        params = {"sigma": st.params["sigma"], "intensity": tree_map(lambda _: next(it), st.params["intensity"])}
         b = type(bundle)(*(t.to(d) for t in bundle))
-        render = rendering.render_rays(params, b, z.to(d), cfg.nerf, draws.enc_key.to(d), sigma_only=False,
-                                       key_intensity=draws.enc_key_intensity.to(d))
-        loss, _ = losses.compute_camera_loss(render, target.to(d), b.valid, cfg.loss)
-        return loss, torch.autograd.grad(loss, leaves)
+        loss, _, grads = cam.camera_loss_and_grads(cfg, st.params, b, target.to(d), z.to(d), draws.enc_key.to(d),
+                                                   draws.enc_key_intensity.to(d))
+        return loss, grads
 
     rows = {}
     for dtype in ("bfloat16", "float32"):
@@ -1200,7 +1189,7 @@ def _camera_card_vs_cpu(mcfg, cube, state, win, n_rays: int, dev) -> dict:
                 st, w, cam.CameraDraws(*(t.to(d) for t in draws)))
             out["step", name] = float(aux["loss"]), tree_leaves(aux["grads"]["intensity"])
             loss, grads = field(cfg, d, st)
-            out["field", name] = float(loss.detach()), list(grads)
+            out["field", name] = float(loss), grads
         for part in ("step", "field"):
             (l_card, g_card), (l_cpu, g_cpu) = out[part, "card"], out[part, "cpu"]
             g_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g_card, g_cpu))
@@ -1209,19 +1198,17 @@ def _camera_card_vs_cpu(mcfg, cube, state, win, n_rays: int, dev) -> dict:
                                             "loss_rel": abs(l_card - l_cpu) / abs(l_cpu), "grad_max_abs": g_err,
                                             "grad_scale": g_scale, "grad_share": g_err / g_scale}
     print("camera leg, one camera step on the card against the CPU (loss bound 1e-5 relative, the whole bf16 "
-          "step's 2^-8; gradients 2^-8 of their largest entry): " + "; ".join(
+          "step's 5e-4; gradients 2^-8 of their largest entry): " + "; ".join(
               f"{k}: loss {r['loss_card']:.7f} / {r['loss_cpu']:.7f} (relative {r['loss_rel']:.3e}), gradients "
               f"max abs diff {r['grad_max_abs']:.3e} of {r['grad_scale']:.3e}" for k, r in rows.items()), flush=True)
-    loss_bound = {k: 2.0**-8 if k == "step, bfloat16 MLP" else 1e-5 for k in rows}
+    loss_bound = {k: 5e-4 if k == "step, bfloat16 MLP" else 1e-5 for k in rows}
     bad = {k: r for k, r in rows.items() if not (r["loss_rel"] <= loss_bound[k] and r["grad_share"] <= 2.0**-8)}
     if bad:
         raise AssertionError(f"camera leg: card and CPU camera steps differ: {bad}")
     return rows
 
 
-def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0), height: int = 360,
-                width: int = 640, n_channels: int = 32, n_azimuth: int = 512, pad_to: int = 16384,
-                n_rays: int = 1024, changes=None) -> dict:
+def _camera_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     """The camera phase at full width: LonerSLAM from cfg/defaults.yaml
     (ray range (1, 40), motion compensation off; its field of 3 colours, SH
     degree 4 and a 64 x 4 intensity MLP, with the MLP in bf16) on the
@@ -1253,11 +1240,9 @@ def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)
     from loner_tpu_torch.ops import cp_kernel
     from loner_tpu_torch.slam import LonerSLAM
 
-    ray_range = (1.0, 40.0)
+    ray_range, height, width, n_rays = (1.0, 40.0), 360, 640, 1024
     settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
         "data": {"ray_range": list(ray_range)}, "tracker": {"motion_compensation": {"enabled": False}}})
-    if changes:
-        settings = settings.augment(changes)
     scene = synthetic.Scene.default()
     poses, ts = synthetic.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
     gt = np.linalg.inv(poses[0])[None] @ poses
@@ -1274,10 +1259,10 @@ def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)
     t0 = time.perf_counter()
     frames = []
     for T, t in zip(poses, ts):
-        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t, n_channels=n_channels, n_azimuth=n_azimuth,
+        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t, n_channels=32, n_azimuth=512,
                                                            max_range=ray_range[1])
         img, _ = synthetic.render_intensity_image(scene, T @ t_lc, K, height, width, ray_range[1])
-        frames.append((make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=pad_to),
+        frames.append((make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384),
                        sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t, pad_to=cfg.mapper.n_sky_pad),
                        np.repeat(img, 3, axis=-1), float(np.median(stamps[hit]))))
     setup_s = time.perf_counter() - t0
@@ -1292,8 +1277,7 @@ def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)
         slam.process_scan(scan, t, gt_pose=g, sky=sky)
         slam.process_image(img, t_mid)
     slam.stop(str(out_dir / "camera_slam"))
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     mapper = slam.mapper
     kfs = mapper.kf_manager.keyframes
@@ -1357,17 +1341,15 @@ def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)
     for _ in range(6):
         t = time.perf_counter()
         aux = run_once()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         step_losses.append(float(aux["loss"]))
     step_ms = sum(times[1:]) / len(times[1:])
     if not all(math.isfinite(x) for x in step_losses):
         raise AssertionError(f"camera leg: non-finite camera loss {step_losses}")
-    prof = (_profile(run_once, 5, step_ms, out_dir / "camera_step_profile.txt", "camera step")
-            if dev.type == "cuda" else None)
+    prof = _profile(run_once, 5, step_ms, out_dir / "camera_step_profile.txt", "camera step")
     print(f"camera leg: a camera step {step_ms:.3f} ms (host clock, synchronized; first {times[0]:.1f} ms), "
-          f"device busy {prof['busy_ms'] if prof else float('nan'):.3f} ms; losses {step_losses}", flush=True)
+          f"device busy {prof['busy_ms']:.3f} ms; losses {step_losses}", flush=True)
 
     # B1-B3 on the inputs one camera step gives them
     cp_in, bwd_in, pdf_in = {}, {}, {}
@@ -1386,8 +1368,7 @@ def _camera_leg(root: Path, out_dir: Path, wrappers, dev=torch.device("cuda", 0)
            "kernels_on_met_inputs": met, "card_vs_cpu": versus}
     del slam, mapper, state, box, win
     shutil.rmtree(out_dir / "camera_slam" / "checkpoints")
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return res
 
 

@@ -149,6 +149,36 @@ def _sample_camera_rays(window: CameraWindow, cube, cfg: MapperConfig, bi: torch
     return RayBundle(origins, dirs, dirs, near, far, valid, torch.zeros_like(near)), target
 
 
+def camera_rays_and_samples(cfg: MapperConfig, cube, window: CameraWindow, occ_grid, draws: CameraDraws):
+    """The rays of a camera step's pixel draws, their target intensities and
+    their samples (the occupancy-grid sampler under OGM, else uniform)."""
+    bundle, target = _sample_camera_rays(window, cube, cfg, draws.bi, draws.yi, draws.xi)
+    if cfg.samples_strategy == "OGM":
+        z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat,
+                                                  draws.u_pdf)
+    else:
+        z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
+    return bundle, target, z_vals
+
+
+def camera_loss_and_grads(cfg: MapperConfig, params, bundle: RayBundle, target: torch.Tensor, z_vals: torch.Tensor,
+                          enc_key: torch.Tensor, enc_key_intensity: torch.Tensor):
+    """The field part of a camera step: render ``bundle`` at ``z_vals`` with
+    ``sigma_only=False, detach_sigma=True``, the masked camera loss against
+    ``target``, and its gradient with respect to each leaf of
+    ``params["intensity"]`` (zeros for a leaf the loss does not reach).
+    Returns (loss, aux, grads), all detached."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params["intensity"])]
+    p = {"sigma": params["sigma"], "intensity": _tree_unflatten(params["intensity"], leaves)}
+    with torch.enable_grad():
+        render = render_rays(p, bundle, z_vals, cfg.nerf, enc_key, sigma_only=False, detach_sigma=True,
+                             key_intensity=enc_key_intensity)
+        loss, aux = compute_camera_loss(render, target, bundle.valid, cfg.loss)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
 def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=None, device="cuda",
                            generator: Optional[torch.Generator] = None):
     """The intensity branch's train step ``camera_step(state, window,
@@ -167,28 +197,13 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    def forward(params, occ_grid, window, draws):
-        bundle, target = _sample_camera_rays(window, cube, cfg, draws.bi, draws.yi, draws.xi)
-        if cfg.samples_strategy == "OGM":
-            z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, cfg.n_samples_train, cfg.perturb,
-                                                      draws.u_strat, draws.u_pdf)
-        else:
-            z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
-        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, sigma_only=False, detach_sigma=True,
-                             key_intensity=draws.enc_key_intensity)
-        return compute_camera_loss(render, target, bundle.valid, cfg.loss)
-
     def camera_step(state: MapperState, window: CameraWindow, draws: Optional[CameraDraws] = None):
         if draws is None:
             draws = draw_camera_step(cfg, window, n_rays, generator, state.poses.device)
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.params["intensity"])]
-        params = {"sigma": state.params["sigma"], "intensity": _tree_unflatten(state.params["intensity"], leaves)}
-        with torch.enable_grad():
-            loss, aux = forward(params, state.occ_grid, window, draws)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        bundle, target, z_vals = camera_rays_and_samples(cfg, cube, window, state.occ_grid, draws)
+        loss, aux, grads = camera_loss_and_grads(cfg, state.params, bundle, target, z_vals, draws.enc_key,
+                                                 draws.enc_key_intensity)
         g_intensity = _tree_unflatten(state.params["intensity"], grads)
-        loss = loss.detach()
         finite = torch.isfinite(loss) & _all_finite(grads)
         with torch.no_grad():
             new_intensity, opt_intensity = _masked_group(
@@ -201,7 +216,7 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
                 global_step=state.global_step + 1,
                 skipped_steps=state.skipped_steps + (~finite).to(torch.int32),
             )
-        return new_state, {"cam_l1": aux["cam_l1"].detach(), "loss": loss, "finite": finite,
+        return new_state, {"cam_l1": aux["cam_l1"], "loss": loss, "finite": finite,
                            "grads": {"intensity": g_intensity}}
 
     camera_step.generator = generator

@@ -170,9 +170,6 @@ class OnlineMapper:
         self.keyframe_update_callbacks: List[Callable] = []
 
     # ------------------------------------------------------------------
-    def _phases_for_kf(self, opt_count: int) -> List[IterationPhase]:
-        return phases_for_pass(self.cfg.schedule, opt_count)
-
     def _pose_mask(self, window_kfs, latest_only: bool) -> torch.Tensor:
         mask = np.zeros((self.cfg.mapper.max_keyframes,), np.float32)
         if latest_only:
@@ -217,7 +214,7 @@ class OnlineMapper:
         fixed = self.cfg.mapper.rays_strategy == "FIXED"
         self.window_timer.start()
         loss_rows: List[tuple] = []  # (phase index, iteration, aux) device scalars
-        for phase_idx, phase in enumerate(self._phases_for_kf(self._opt_count)):
+        for phase_idx, phase in enumerate(phases_for_pass(self.cfg.schedule, self._opt_count)):
             flags = TrainStepFlags(freeze_sigma=phase.freeze_sigma_mlp, freeze_rgb=phase.freeze_rgb_mlp,
                                    freeze_poses=phase.freeze_poses, do_occ_update=False)
             pose_mask = self._pose_mask(window_kfs, phase.latest_kf_only)

@@ -390,9 +390,10 @@ def test_camera_step_on_card_matches_cpu(dtype):
     """One camera step on the card and on the CPU from one state with the
     same draws: the intensity gradients within 1e-4 (f32 MLP) or 2^-8 (bf16
     MLP) normwise, the bounds of PERF.md section 2; the loss within 1e-5
-    relative with the f32 MLP, and within 2^-8 with the bf16 MLP, whose
+    relative with the f32 MLP, and within 5e-4 with the bf16 MLP, whose
     operands can round one bf16 ulp apart where the rays and samples the
-    two devices build differ by ulps (ROADMAP queue C)."""
+    two devices build differ by ulps (ROADMAP queue C: 8.2e-6 to 1.27e-4
+    over five full-width runs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _, _, jstate, _, tcfg, tcube, twin = _setup(dtype)
@@ -406,8 +407,11 @@ def test_camera_step_on_card_matches_cpu(dtype):
     (_, a_cpu), (new, a_gpu) = out["cpu"], out["cuda"]
     assert new.global_step.device.type == "cuda"
     tol = 1e-4 if dtype == "float32" else 2.0**-8
-    np.testing.assert_allclose(float(a_gpu["loss"]), float(a_cpu["loss"]), rtol=1e-5 if dtype == "float32" else tol)
-    assert tp.rel_err(a_gpu["grads"]["intensity"], a_cpu["grads"]["intensity"]) <= tol
+    loss_rel = abs(float(a_gpu["loss"]) - float(a_cpu["loss"])) / abs(float(a_cpu["loss"]))
+    grad_rel = tp.rel_err(a_gpu["grads"]["intensity"], a_cpu["grads"]["intensity"])
+    print(f"camera step card against CPU, {dtype} MLP: loss {loss_rel:.3e} relative, gradients {grad_rel:.3e}")
+    assert loss_rel <= (1e-5 if dtype == "float32" else 5e-4)
+    assert grad_rel <= tol
 
 
 # ---------------------------------------------------------------------------
