@@ -14,7 +14,7 @@ from loner_tpu_torch.mapping.optimizer import MapperConfig
 from loner_tpu_torch.models.losses import LossConfig
 from loner_tpu_torch.models.nerf import HashEncodingConfig, NeRFConfig
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig
-from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.runtime.debug_dump import DebugFlags
 from loner_tpu_torch.slam import LoopClosureConfig, SlamConfig
 from loner_tpu_torch.tracking.frame_synthesis import FrameSynthesisConfig
 from loner_tpu_torch.tracking.icp import IcpConfig, IcpStage

@@ -12,7 +12,7 @@ the lidar loss schedule reads) and a non-finite step in ``skipped_steps``.
 
 The pixel and sampler draws come in a :class:`CameraDraws`, or from the
 step's ``torch.Generator``, so that a caller can replay another source's.
-The JAX package's mesh-replicated step is queue A item 5 and raises.
+The JAX package's mesh-replicated step is queue A item 3 and raises.
 """
 from __future__ import annotations
 
@@ -188,7 +188,7 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
     None), kept as ``camera_step.generator``."""
     if mesh is not None:
         raise NotImplementedError("make_camera_train_step(mesh=...): a camera step replicated over several cards "
-                                  "is not ported (ROADMAP.md, queue A item 5)")
+                                  "is not ported (ROADMAP.md, queue A item 3)")
     dev = resolve_device(device)
     cube = cube.to(dev)
     # f32 products stay f32 (the JAX package's precision), never TF32

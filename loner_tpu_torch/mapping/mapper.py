@@ -25,8 +25,14 @@ carry an image, at their current optimized poses. Each camera step counts
 in the state's ``global_step``, so ``_host_step`` (the lidar steps) falls
 behind it from the first camera step on.
 
+With the debug block's ray, sample or loss-distribution flag on, each
+window ends with one probe pass (``make_debug_probe``: the train step's
+rays, samples and render from fresh draws, without gradients) whose
+diagnostics ``runtime/debug_dump.py`` writes under
+``<dump_dir>/keyframe_<k>/``.
+
 Not ported, and raising ``NotImplementedError``: a mapper mesh (queue A
-item 5) and the debug probe dumps (item 2).
+item 3).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from loner_tpu_torch.mapping.optimizer import (
     make_train_step,
 )
 from loner_tpu_torch.runtime.checkpoints import save_checkpoint
-from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.runtime.debug_dump import DebugFlags
 from loner_tpu_torch.runtime.profiling import WindowTimer
 
 
@@ -128,7 +134,7 @@ class OnlineMapperConfig:
     checkpoint_dir: Optional[str] = None
     log_losses: bool = False  # per-keyframe, per-phase loss CSVs
     loss_log_dir: Optional[str] = None
-    mesh_device_indices: Optional[List[int]] = None  # queue A item 5
+    mesh_device_indices: Optional[List[int]] = None  # queue A item 3
     camera: OnlineCameraConfig = field(default_factory=OnlineCameraConfig)
     debug: DebugFlags = field(default_factory=DebugFlags)
 
@@ -136,11 +142,7 @@ class OnlineMapperConfig:
 def _check_ported(cfg: OnlineMapperConfig) -> None:
     if cfg.mesh_device_indices:
         raise NotImplementedError("mesh_device_indices: a mapper over several cards is not ported "
-                                  "(ROADMAP.md, queue A item 5)")
-    dumps = cfg.debug.requested(("draw_rays", "draw_samples", "draw_loss_distribution"))
-    if dumps:
-        raise NotImplementedError(f"debug {dumps}: the mapper's debug probe dumps wait for "
-                                  "runtime/debug_dump.py (ROADMAP.md, queue A item 2)")
+                                  "(ROADMAP.md, queue A item 3)")
 
 
 class OnlineMapper:
@@ -161,6 +163,7 @@ class OnlineMapper:
         # optimization passes so far: picks the schedule's bucket
         self._opt_count = 0
         self._camera_step = None  # built on the first window with an image
+        self._debug_probe = None  # built on the first window with a mapper dump flag on
         # images matched to a keyframe, and matched to a scan that never became one
         self.image_attaches = 0
         self.image_attach_drops = 0
@@ -239,6 +242,8 @@ class OnlineMapper:
             torch.cuda.synchronize(self.device)
         if loss_rows:
             self._write_loss_csvs(len(self.kf_manager), loss_rows)
+        if self.cfg.debug.mapper_any:
+            self._dump_debug_probe(window)
         self.window_timer.stop(n_iters)
 
         if self.cfg.camera.enabled:
@@ -252,6 +257,22 @@ class OnlineMapper:
         self._maybe_checkpoint()
         self.map_times.append(time.time() - t0)
         return True
+
+    def _dump_debug_probe(self, window: KeyFrameWindow):
+        """One probe pass over the window from fresh draws (``step_draws``'
+        when given, else the mapper's generator's), written by
+        ``dump_window_probe`` under ``keyframe_<k>/``."""
+        from loner_tpu_torch.mapping.optimizer import make_debug_probe
+        from loner_tpu_torch.runtime.debug_dump import dump_window_probe
+
+        if self._debug_probe is None:
+            self._debug_probe = make_debug_probe(self.cfg.mapper, self.cube, self.device)
+        draws = (self._step_draws(window) if self._step_draws is not None
+                 else draw_step(self.cfg.mapper, window, self.generator, self.device))
+        out = self._debug_probe(self.state, window, draws, 0)
+        dump_window_probe(self.cfg.debug, f"keyframe_{len(self.kf_manager)}",
+                          {k: v.cpu().numpy() for k, v in out.items()}, scale=self.cfg.mapper.world_scale,
+                          shift=self.cube.shift.cpu().numpy())
 
     # ------------------------------------------------------------------
     # the online camera phase

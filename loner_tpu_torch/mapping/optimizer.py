@@ -28,7 +28,9 @@ share from each keyframe's trunk band) or FIXED (consecutive slices of one
 permutation per window); samples OGM (occupancy-guided) or UNIFORM.
 
 ``make_render_fn`` is the evaluation render: ``n_samples_test`` samples per
-ray, no jitter, no gradient.
+ray, no jitter, no gradient. ``make_debug_probe`` is the train step's ray
+build, sampler and render without gradients, returning per-ray and
+per-sample diagnostics for the debug dumps.
 """
 from __future__ import annotations
 
@@ -457,13 +459,11 @@ def make_render_fn(cfg: MapperConfig, test: bool = True, sigma_only: bool = True
     generator=None) -> RenderResult`` on ``device``, without gradients:
     ``n_samples_test`` samples per ray (``n_samples_train`` when not
     ``test``), no stratified jitter, OGM or UNIFORM as the config says, the
-    field in ``cfg.nerf.point_chunks`` chunks, and the intensity branch's
-    colours too unless ``sigma_only``. OGM's importance half still draws its
+    field in ``cfg.nerf.point_chunks`` chunks, composited by
+    ``render_strategy`` ("default" or "adjusted"), and the intensity
+    branch's colours too unless ``sigma_only``. OGM's importance half still draws its
     inverse-CDF uniforms, as the JAX package's render does: ``u_pdf``
     (N, S/2), else drawn from ``generator``."""
-    if render_strategy != "default":
-        raise NotImplementedError(f"render_strategy={render_strategy!r} needs composite_peak_adjusted "
-                                  "(ROADMAP.md, queue A item 1)")
     if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
         raise ValueError(f"samples_strategy={cfg.samples_strategy!r}: one of {_SAMPLES_STRATEGIES}")
     dev = resolve_device(device)
@@ -478,6 +478,49 @@ def make_render_fn(cfg: MapperConfig, test: bool = True, sigma_only: bool = True
             z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, 0.0, None, u_pdf)
         else:
             z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, 0.0)
-        return render_rays(params, bundle, z_vals, cfg.nerf, sigma_only=sigma_only)
+        return render_rays(params, bundle, z_vals, cfg.nerf, sigma_only=sigma_only, render_strategy=render_strategy)
 
     return render_fn
+
+
+def make_debug_probe(cfg: MapperConfig, cube, device="cuda"):
+    """The debug probe ``probe(state, window, draws, iteration=0) -> dict``
+    on ``device``: the train step's ray build, sampler and sigma render from
+    ``draws`` (a :class:`StepDraws`, as the step takes), without gradients,
+    and the lidar loss's per-ray terms. Returns cube-frame tensors:
+    ``origins`` and ``endpoints`` (N, 3), ``points`` (N, S, 3),
+    ``weights`` (N, S), ``valid`` (N,) and the per-ray ``depth_err``
+    (metric), ``js`` and ``los``; ``runtime/debug_dump.py`` maps them to
+    the metric world."""
+    dev = resolve_device(device)
+    cube = cube.to(dev)
+    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=cfg.n_samples_train))
+
+    @torch.no_grad()
+    def probe(state: MapperState, window, draws: StepDraws, iteration: int = 0) -> dict:
+        ray_idx = (fixed_ray_idx(draws.perm, iteration, cfg.rays_per_kf) if cfg.rays_strategy == "FIXED"
+                   else draws.ray_idx)
+        bundle = build_window_rays(state.poses, window, cube, cfg, ray_idx, draws.sky_idx)
+        if cfg.samples_strategy == "OGM":
+            z_vals = sampling.occ_grid_sampler_z_vals(
+                bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat, draws.u_pdf
+            )
+        else:
+            z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
+        render = render_rays(state.params, bundle, z_vals, cfg.nerf, draws.enc_key,
+                             point_chunks=cfg.train_point_chunks)
+        _, aux = compute_lidar_loss(render, bundle, cfg.world_scale, cfg.loss, state.global_step.to(torch.float32),
+                                    iteration, return_per_ray=True)
+        per_ray = aux["per_ray"]
+        return {
+            "origins": bundle.origins,
+            "endpoints": bundle.origins + bundle.directions * render.depth[:, None],
+            "points": bundle.origins[:, None, :] + bundle.directions[:, None, :] * z_vals[..., None],
+            "weights": render.weights,
+            "valid": bundle.valid,
+            "depth_err": per_ray["depth_err_m"],
+            "js": per_ray["js"],
+            "los": per_ray["los"],
+        }
+
+    return probe

@@ -95,9 +95,12 @@ def depth_eps_at_iteration(cfg: LossConfig, iteration):
     return _floor(eps, cfg.min_depth_eps)
 
 
-def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, global_step, iteration) -> Tuple[torch.Tensor, dict]:
+def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, global_step, iteration,
+                       return_per_ray: bool = False) -> Tuple[torch.Tensor, dict]:
     """(scalar loss, aux dict): depth MSE + LOS/JS + opacity, mask-aware.
-    ``global_step`` and ``iteration`` drive the optional decays."""
+    ``global_step`` and ``iteration`` drive the optional decays.
+    ``return_per_ray`` (the debug probe's) adds the per-ray vectors before
+    their means as ``aux["per_ray"]``."""
     valid = bundle.valid
     depth_gt_cube = bundle.depth
     transparent = depth_gt_cube > bundle.far
@@ -150,6 +153,14 @@ def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, glo
         "n_opaque": torch.sum(opaque.to(torch.float32)),
         "n_valid": torch.sum(valid.to(torch.float32)),
     }
+    if return_per_ray:
+        aux["per_ray"] = {
+            "depth_err_m": depth_pred_metric - depth_gt_metric[:, 0],
+            "js": js,
+            "los": torch.mean(per_elem, dim=1),
+            "valid": valid,
+            "opaque": opaque,
+        }
     return loss, aux
 
 

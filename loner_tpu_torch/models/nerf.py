@@ -114,7 +114,7 @@ def _check_impl(cfg: NeRFConfig) -> None:
     if cfg.encoding_impl not in _PORTED_IMPLS:
         raise NotImplementedError(
             f"encoding_impl={cfg.encoding_impl!r}: only {_PORTED_IMPLS} are ported "
-            "(ROADMAP.md, queue A item 4)"
+            "(ROADMAP.md, queue A item 2)"
         )
 
 

@@ -27,7 +27,10 @@ def build_cdf(weights: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def pdf_sample_ref(bins: torch.Tensor, cdf: torch.Tensor, u: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """(N, K) samples: bins (N, M+1), cdf (N, M+1), u (N, K)."""
     m = cdf.shape[-1] - 1
-    inds = torch.sum((cdf[:, :, None] <= u[:, None, :]).to(torch.int64), dim=1)  # (N, K)
+    # #{j : cdf[j] <= u}, in blocks of rays of at most 2^27 comparisons
+    step = max(1, (1 << 27) // max(1, (m + 1) * u.shape[1]))
+    inds = torch.cat([torch.sum(cdf[s:s + step, :, None] <= u[s:s + step, None, :], dim=1)
+                      for s in range(0, max(u.shape[0], 1), step)])  # (N, K)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=m)
     cdf_lo = torch.gather(cdf, 1, below)

@@ -4,7 +4,7 @@ The port of ``loner_tpu/parallel/pose_graph.py`` on one device: odometry
 between-factors, loop-closure factors and unary priors on se(3) 6-vectors,
 a dense normal system (6K, 6K) and ``n_iters`` Gauss-Newton steps with an
 anchor prior on one pose. The JAX package can shard the factors over a
-device mesh (``mesh``); that form is queue A item 5 and raises here.
+device mesh (``mesh``); that form is queue A item 3 and raises here.
 
 Residuals are the smooth first-order se(3) error of the JAX package
 (translation and the antisymmetric part of the rotation), differentiable at
@@ -167,7 +167,7 @@ def solve_pose_graph(poses6: torch.Tensor, factors: PoseGraphFactors, n_iters: i
     at the last linearisation point, a scalar tensor)."""
     if mesh is not None:
         raise NotImplementedError("solve_pose_graph(mesh=...): factors sharded over several cards are not "
-                                  "ported (ROADMAP.md, queue A item 5)")
+                                  "ported (ROADMAP.md, queue A item 3)")
     dev = poses6.device
     factors = factors.to(dev)
     priors = None if priors is None else priors.to(dev)

@@ -17,7 +17,7 @@ poses by a pose graph with ICP loop closures (``mapping/loop_closure.py``)
 before it writes the outputs, and writes ``ba_info.json``.
 
 Not ported, and raising ``NotImplementedError``: the tracker and mapper on
-disjoint cards (queue A item 5).
+disjoint cards (queue A item 3).
 """
 from __future__ import annotations
 
@@ -54,14 +54,14 @@ class SlamConfig:
     max_time_delta: float = 3.0
     use_groundtruth_poses: bool = False
     loop_closure: LoopClosureConfig = field(default_factory=LoopClosureConfig)
-    concurrent_device_split: bool = False  # queue A item 5
+    concurrent_device_split: bool = False  # queue A item 3
 
 
 class LonerSLAM:
     def __init__(self, cfg: SlamConfig, cube: WorldCube, out_dir: Optional[str] = None, device="cuda"):
         if cfg.concurrent_device_split:
             raise NotImplementedError("concurrent_device_split: tracker and mapper on disjoint cards is not "
-                                      "ported (ROADMAP.md, queue A item 5)")
+                                      "ported (ROADMAP.md, queue A item 3)")
         self.cfg = cfg
         self.cube = cube
         self.out_dir = out_dir

@@ -5,10 +5,13 @@ first ``scan_duration`` fraction of each sweep (host numpy, as in the JAX
 package), registered against the previous frame's cloud by the coarse-to-fine
 point-to-plane ICP from the identity; the first frame anchors the origin;
 the scan is motion-compensated with the interpolated pose. ICP and motion
-compensation run on the tracker's device.
+compensation run on the tracker's device. With the debug block's
+``draw_icp_clouds`` on, each registration writes its clouds (input,
+aligned, target) under ``<dump_dir>/frame_<n>/``.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
@@ -34,10 +37,10 @@ class TrackerConfig:
     sky_segmentation: bool = False
     sky_max_rays: int = 1024
     sky_min_elevation_deg: float = 5.0
-    # pins the tracker to one device of several (ROADMAP queue A item 5)
+    # pins the tracker to one device of several (ROADMAP queue A item 3)
     device_index: Optional[int] = None
-    # the debug block's flags (runtime/debug_flags.py); the ICP cloud dumps
-    # are not ported
+    # the debug block's flags (runtime/debug_dump.DebugFlags): draw_icp_clouds
+    # dumps each registration's clouds
     debug: Optional[object] = None
 
 
@@ -56,10 +59,7 @@ class Tracker:
         if cfg.device_index is not None:
             raise NotImplementedError(
                 "TrackerConfig.device_index: pinning the tracker to one of several cards is not ported "
-                "(ROADMAP.md, queue A item 5)")
-        if cfg.debug is not None and cfg.debug.requested(("draw_icp_clouds",)):
-            raise NotImplementedError(
-                "debug draw_icp_clouds: the ICP cloud dumps wait for runtime/debug_dump.py (ROADMAP.md, queue A item 2)")
+                "(ROADMAP.md, queue A item 3)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._icp = make_icp(cfg.icp, self.device)
@@ -67,6 +67,7 @@ class Tracker:
         self._prev_pose: Optional[np.ndarray] = None
         self._prev_time: Optional[float] = None
         self.track_times: List[float] = []
+        self._frame_count = 0  # frames tracked: names the ICP cloud dumps
 
     def _extract_cloud(self, scan: LidarScan) -> Tuple[torch.Tensor, torch.Tensor]:
         """The sweep's first ``scan_duration`` fraction, downsampled by a
@@ -85,6 +86,20 @@ class Tracker:
         v = np.arange(n) < len(idx)
         return torch.from_numpy(pts).to(self.device), torch.from_numpy(v).to(self.device)
 
+    def _dump_icp_clouds(self, cloud, cloud_valid, prev_pts, prev_valid, T_rel):
+        """This registration's clouds as PCD files under
+        ``frame_<n>/``: the input, the input moved by ``T_rel`` (the
+        aligned cloud) and the target, valid points only."""
+        from loner_tpu_torch.runtime.debug_dump import write_pcd
+
+        d = os.path.join(self.cfg.debug.dump_dir, f"frame_{self._frame_count}")
+        src = cloud.cpu().numpy()[cloud_valid.cpu().numpy()]
+        tgt = prev_pts.cpu().numpy()[prev_valid.cpu().numpy()]
+        T = T_rel.cpu().numpy()
+        write_pcd(os.path.join(d, "icp_input.pcd"), src)
+        write_pcd(os.path.join(d, "icp_aligned.pcd"), src @ T[:3, :3].T + T[:3, 3])
+        write_pcd(os.path.join(d, "icp_target.pcd"), tgt)
+
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
@@ -102,6 +117,8 @@ class Tracker:
             # T_rel maps the current sensor frame into the previous one
             pose = self._prev_pose @ T_rel.cpu().numpy().astype(np.float64)
             rmse, fitness = float(rmse_t), float(fit_t)
+            if self.cfg.debug is not None and self.cfg.debug.on("draw_icp_clouds"):
+                self._dump_icp_clouds(cloud, cloud_valid, prev_pts, prev_valid, T_rel)
 
         scan = frame_scan
         if self.cfg.motion_compensation and self._prev_pose is not None:
@@ -127,4 +144,5 @@ class Tracker:
 
         dt = time.time() - t0
         self.track_times.append(dt)
+        self._frame_count += 1
         return TrackResult(pose=pose, scan=scan, rmse=rmse, fitness=fitness, wall_time_s=dt, sky_dirs=sky_dirs)

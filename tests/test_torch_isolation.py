@@ -34,7 +34,7 @@ from loner_tpu_torch.ops import cp_kernel as tcp
 from loner_tpu_torch.ops import fused_encoder as tfe
 from loner_tpu_torch.ops import kernels as tkernels
 from loner_tpu_torch.ops import triad_field as ttriad
-from loner_tpu_torch.runtime.debug_flags import DebugFlags
+from loner_tpu_torch.runtime.debug_dump import DebugFlags
 from loner_tpu_torch.runtime.run_io import load_run
 from loner_tpu_torch.slam import LonerSLAM, LoopClosureConfig, SlamConfig
 from loner_tpu_torch.tracking import icp as ticp
@@ -110,6 +110,7 @@ def test_entry_points_default_to_the_card():
     for make in (lambda: run_slam.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
                  lambda: optimize_implicit_map.main(["cfg/synthetic_tiny.yaml", "--synthetic"]),
                  lambda: bench.main([]), lambda: load_run("no_such_run"), lambda: topt.make_render_fn(cfg),
+                 lambda: topt.make_debug_probe(cfg, cube),
                  lambda: run_slam.run_trial(None, None, "unused", False)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -154,24 +155,25 @@ def _slam(**changes):
 
 # option -> (changes to a small CPU LonerSLAM's config, the message's marker)
 UNPORTED_SLAM = {
-    "device_split": ({"concurrent_device_split": True}, "item 5"),
-    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 5"),
-    "tracker_device_index": ({"tracker.device_index": 0}, "item 5"),
-    "debug_icp_clouds": ({"mapper.debug": DebugFlags(global_enabled=True, draw_icp_clouds=True)}, "debug_dump"),
-    "debug_rays": ({"mapper.debug": DebugFlags(global_enabled=True, draw_rays=True)}, "debug_dump"),
+    "device_split": ({"concurrent_device_split": True}, "item 3"),
+    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 3"),
+    "tracker_device_index": ({"tracker.device_index": 0}, "item 3"),
 }
 # the online camera phase: a 4 x 6 intrinsics of 2 steps of 32 rays a window
 CAMERA = tmapper.OnlineCameraConfig(enabled=True, K=np.array([[3.0, 0, 3], [0, 3, 2], [0, 0, 1]]),
                                     iterations_per_window=2, n_rays=32)
-# options that raised until the offline slice (rays, samples) and the loop
-# closure and camera slice (camera, loop_closure) ported them: each now
-# builds and maps one keyframe
+# options that raised until the offline slice (rays, samples), the loop
+# closure and camera slice (camera, loop_closure) and the map tools and
+# debug dumps slice (debug_*) ported them: each now builds and maps one
+# keyframe
 PORTED_SLAM = {
     "rays_mask": {"mapper.mapper.rays_strategy": "MASK"},
     "rays_fixed": {"mapper.mapper.rays_strategy": "FIXED"},
     "samples_uniform": {"mapper.mapper.samples_strategy": "UNIFORM"},
     "camera": {"mapper.camera": CAMERA},
     "loop_closure": {"loop_closure": LoopClosureConfig(enabled=True)},
+    "debug_icp_clouds": {"mapper.debug": DebugFlags(global_enabled=True, draw_icp_clouds=True)},
+    "debug_rays": {"mapper.debug": DebugFlags(global_enabled=True, draw_rays=True)},
 }
 
 
@@ -182,16 +184,21 @@ def _scan(pose, t):
 
 
 @pytest.mark.parametrize("option", sorted(PORTED_SLAM))
-def test_ported_options_run(option):
+def test_ported_options_run(option, tmp_path):
     """A small CPU LonerSLAM with the option maps its first keyframe: finite
     steps, as many as the schedule says (FIXED: one epoch over the padded
     scan, P // R steps). With the camera on, an image attached to that
     keyframe trains in the next pass, whose camera steps count in
     ``global_step`` but not in the mapper's lidar steps; with loop closure
-    on, ``stop`` runs (one keyframe: nothing to refine)."""
+    on, ``stop`` runs (one keyframe: nothing to refine). With a debug flag
+    on, its dump lands under the dump directory: the probe's ray clouds of
+    the first window, or the ICP clouds of the first registration."""
+    changes = dict(PORTED_SLAM[option])
+    if option.startswith("debug"):
+        changes["mapper.debug"] = DebugFlags(**{**vars(changes["mapper.debug"]), "dump_dir": str(tmp_path)})
     small = {"mapper.mapper.rays_per_kf": 16, "mapper.mapper.sky_rays_per_kf": 4, "mapper.mapper.n_samples_train": 16,
              "mapper.schedule": [tmapper.SchedulePhase(1, [tmapper.IterationPhase(3, freeze_poses=True)])]}
-    slam = _slam(**small, **PORTED_SLAM[option])
+    slam = _slam(**small, **changes)
     poses, ts = synthetic.circular_trajectory(n_poses=2, radius=3.0)
     assert slam.mapper.process_frame(_scan(poses[0], ts[0]), 0.0, np.eye(4))
     steps = 128 // 16 if option == "rays_fixed" else 3
@@ -207,6 +214,13 @@ def test_ported_options_run(option):
     if option == "loop_closure":
         slam.stop()
         assert slam.ba_info is None
+    if option == "debug_rays":
+        assert (tmp_path / "keyframe_1" / "ray_endpoints.pcd").exists()
+    if option == "debug_icp_clouds":
+        for i in range(2):
+            slam.tracker.track(_scan(poses[i], ts[i]), float(ts[i]))
+        assert {p.name for p in (tmp_path / "frame_1").iterdir()} == {"icp_input.pcd", "icp_aligned.pcd",
+                                                                      "icp_target.pcd"}
 
 
 def test_process_image_runs():

@@ -77,12 +77,12 @@ def test_solve_pose_graph_matches_jax(name):
 
 def test_padded_factors_and_the_mesh():
     """Padding (weight 0, indices 0) changes nothing; the sharded solve is
-    queue A item 5 and raises."""
+    queue A item 3 and raises."""
     p0, edges, _, _ = _graph("loop")
     a, _ = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges), n_iters=5)
     b, _ = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges, n_pad=24), n_iters=5)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges), mesh=object())
 
 

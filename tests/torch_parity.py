@@ -307,3 +307,87 @@ def two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def adjusted_tie_rays(z_vals, raw_sigma, rays_d, tol: float = 1e-5) -> np.ndarray:
+    """(N,) bool: the rays whose "adjusted" depth (``composite_peak_adjusted``)
+    turns on a near-tie that float32 rounding decides, computed in float64
+    from one package's z values (N, S), sigmas (N, S) and directions: a
+    transmittance within ``tol`` of a threshold at a crossing, two of the
+    three smallest normalised rise deltas within ``tol`` (relative) of each
+    other (the stable sort's order of exact ties: the stratified samples are
+    equally spaced, so crossings on them give equal deltas, which the two
+    packages' z values, ulps apart, order either way), or a prominence ratio
+    within ``tol`` of its threshold. Elsewhere the two packages must agree."""
+    z = np.asarray(z_vals, np.float64)
+    n = z.shape[0]
+    d_norm = np.linalg.norm(np.asarray(rays_d, np.float64), axis=1)[:, None]
+    deltas = np.concatenate([z[:, 1:] - z[:, :-1], np.full((n, 1), 1e10)], axis=1) * d_norm
+    alphas = 1 - np.exp(-deltas * np.maximum(np.asarray(raw_sigma, np.float64), 0.0))
+    T = np.cumprod(np.concatenate([np.ones((n, 1)), 1 - alphas + 1e-10], axis=1), axis=1)[:, :-1]
+    Ts = np.concatenate([np.ones((n, 1)), T[:, :-1]], axis=1)
+    near = np.zeros(n, bool)
+    d_th = []
+    for th in (0.5, 0.9, 0.8, 0.7, 0.6, 0.501):
+        near |= np.any((np.abs(T - th) <= tol) | (np.abs(Ts - th) <= tol), axis=1)
+        m = ~(T > th) & (Ts > th)
+        d_th.append(np.where(m.any(1), z[np.arange(n), np.argmax(m, 1)], 0.0))
+    valid = d_th[0] > 0  # the others' depth is 0 whatever their deltas
+    d_th = np.stack(d_th[1:])
+    rise = (d_th[1:] - d_th[:-1]) / (d_th[-1] + 1e-10)
+    s = np.sort(rise, axis=0)
+    scale = np.maximum(np.abs(s).max(axis=0), 1e-30)
+    tie = np.any(np.abs(s[1:3] - s[0:2]) <= tol * scale, axis=0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        tie |= np.abs(s[0] / np.abs(s[0] + s[1]) - 0.45) <= tol
+        tie |= np.abs(s[0] / rise.mean(axis=0) - 0.35) <= tol
+    return near | (valid & tie)
+
+
+def tiny_run_dirs(root, n_samples: int = 16, occ_seed: int = 0, samples: str = "OGM"):
+    """(JAX run directory, the port's run directory, trajectory poses (8, 4, 4))
+    holding one map: cfg/synthetic_tiny.yaml with ``n_samples`` samples a
+    ray in training and evaluation and the ``samples`` strategy, the world
+    cube of an 8-pose loop of radius 5 m, and a freshly initialised JAX
+    state with a random occupancy grid (``occ_seed``), saved by each
+    package's checkpoint writer (``full_config.pkl``, ``world_cube.yaml``,
+    ``checkpoints/ckpt_0``), as ``load_run`` reads them."""
+    import os
+
+    import yaml
+
+    from loner_tpu.config import settings as jsettings
+    from loner_tpu.config.build import build_mapper_config as j_build_mapper_config
+    from loner_tpu.runtime.checkpoints import save_checkpoint as j_save_checkpoint
+    from loner_tpu_torch.config import settings as tsettings
+    from loner_tpu_torch.convert import state_from_jax
+    from loner_tpu_torch.runtime.checkpoints import save_checkpoint as t_save_checkpoint
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(root, exist_ok=True)
+    cfg_path = os.path.join(root, "tiny_render.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"baseline": os.path.join(repo, "cfg", "synthetic_tiny.yaml"), "changes": {"mapper": {
+            "optimizer": {"samples_selection": {"strategy": samples},
+                          "model_config": {"model": {"render": {"N_samples_train": n_samples,
+                                                                "N_samples_test": n_samples}}}}}}}, f)
+    poses, _ = jsyn.circular_trajectory(n_poses=8, radius=5.0, z=1.5, period=8.0)
+    cube = j_compute_world_cube(poses, ray_range=RAY_RANGE)
+    js = jsettings.load_settings(cfg_path)
+    jcfg = j_build_mapper_config(js, float(cube.scale_factor))
+    jstate = jopt.init_mapper_state(jax.random.PRNGKey(0), jcfg)
+    occ = np.random.default_rng(occ_seed).normal(0, 3, jstate.occ_grid.shape).astype(np.float32)
+    jstate = jstate._replace(occ_grid=jnp.asarray(occ))
+    dirs = []
+    for name, settings, save, state in (
+            ("jax_run", js, j_save_checkpoint, jstate),
+            ("port_run", tsettings.load_settings(cfg_path), t_save_checkpoint,
+             state_from_jax(np_tree(jstate), device="cpu"))):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        settings.dump_pickle(os.path.join(d, "full_config.pkl"))
+        with open(os.path.join(d, "world_cube.yaml"), "w") as f:
+            yaml.safe_dump(cube.as_dict(), f)
+        save(os.path.join(d, "checkpoints"), 0, state)
+        dirs.append(d)
+    return dirs[0], dirs[1], np.linalg.inv(poses[0])[None] @ poses
