@@ -43,6 +43,22 @@ def _alphas_and_transmittance(sigmas: torch.Tensor, z_vals: torch.Tensor, rays_d
     return alphas, trans
 
 
+def _weights_and_colours(raw_t: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor, sigma_only: bool,
+                         num_colors: int):
+    """(rgb, weights, opacity, T) of :func:`composite_t`, with T the
+    transmittance before each sample. ``rgb`` is (N, num_colors), or a
+    (N, 1) dummy of -1 when ``sigma_only``."""
+    sigmas = raw_t[0] if sigma_only else raw_t[num_colors]
+    alphas, trans = _alphas_and_transmittance(sigmas, z_vals, rays_d)
+    weights = alphas * trans
+    opacity = torch.sum(weights, dim=-1)
+    if sigma_only:
+        rgb = torch.full((sigmas.shape[0], 1), -1.0, dtype=sigmas.dtype, device=sigmas.device)
+    else:
+        rgb = torch.einsum("ns,cns->nc", weights, raw_t[:num_colors])
+    return rgb, weights, opacity, trans
+
+
 def composite_t(
     raw_t: torch.Tensor,  # (C+1, N, S), or (1, N, S) when sigma_only: channels leading
     z_vals: torch.Tensor,  # (N, S)
@@ -53,17 +69,10 @@ def composite_t(
 ):
     """(rgb, depth, weights, opacity, variance). ``rgb`` is (N, num_colors),
     or a (N, 1) dummy of -1 when ``sigma_only``."""
-    sigmas = raw_t[0] if sigma_only else raw_t[num_colors]
-    alphas, trans = _alphas_and_transmittance(sigmas, z_vals, rays_d)
-    weights = alphas * trans
-    opacity = torch.sum(weights, dim=-1)
+    rgb, weights, opacity, _ = _weights_and_colours(raw_t, z_vals, rays_d, sigma_only, num_colors)
     depth = torch.sum(weights * z_vals, dim=-1)
     if far is not None:
         depth = depth + (1.0 - opacity) * far
-    if sigma_only:
-        rgb = torch.full((sigmas.shape[0], 1), -1.0, dtype=sigmas.dtype, device=sigmas.device)
-    else:
-        rgb = torch.einsum("ns,cns->nc", weights, raw_t[:num_colors])
     variance = torch.sum(weights * (depth[:, None] - z_vals) ** 2, dim=-1)
     return rgb, depth, weights, opacity, variance
 
@@ -93,8 +102,7 @@ def composite_peak_adjusted(
     common: a sharp wall crosses several thresholds at one sample), and
     0/0 stays NaN, whose comparisons are false: a perfectly sharp wall is
     neither resampled nor dropped."""
-    rgb, _, weights, opacity, _ = composite_t(raw_t, z_vals, rays_d, far, sigma_only, num_colors)
-    _, T = _alphas_and_transmittance(raw_t[0] if sigma_only else raw_t[num_colors], z_vals, rays_d)
+    rgb, weights, opacity, T = _weights_and_colours(raw_t, z_vals, rays_d, sigma_only, num_colors)
     T_shifted = torch.cat([torch.ones_like(T[:, :1]), T[:, :-1]], dim=-1)
     zero = torch.zeros((), dtype=z_vals.dtype, device=z_vals.device)
 

@@ -367,8 +367,8 @@ def test_render_utils_match_jax(tmp_path):
 def test_render_chunk_on_card_matches_cpu():
     """One virtual sweep of 8 x 128 rays at 2048 samples a ray (the yaml's
     n_samples_test) on the card and on the CPU from the same state and
-    uniforms, within 6e-5 (relative), the bound chip_smoke.py holds its
-    whole render chunk to (four times the largest of five readings,
+    uniforms, within 6e-5 (relative; chip_smoke.py holds its full-width
+    chunk to ``CHUNK_BOUND``, four times the largest of fifteen readings,
     PERF.md): the whole render (each device builds its rays and samples),
     and the render from the CPU's rays and samples, which on this untrained
     map's mostly transparent rays reads 1.9e-5 (the transmittance is a
