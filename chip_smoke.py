@@ -1,10 +1,14 @@
 """Drive the PyTorch port (the mapper, the online SLAM loop with its loop
-closure and camera phase, the users' programs, and the map tools and debug
-dumps) on one CUDA card, and check it.
+closure and camera phase, the users' programs, the map tools and debug
+dumps, and the alternate encoders and data prep) on one CUDA card, and
+check it.
 
 Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --only 3h`` builds the kernels and runs leg 3h
+alone, with its reduced-depth steps, and prints neither result line.)
 
 In order:
   1. print the card's name and power limit, build the kernel library
@@ -105,12 +109,29 @@ In order:
       3d's sequence with every debug dump flag on (ATE under 0.35 m; B1-B3
       once per train step, B1 and B3 once more per window's probe; every
       dump file present);
+  3h. the three alternate hash encoders ("exact", "packed", "cell") at the
+      flagship (16 levels x 2 features, 2^18 and 2^19 vertices; CellHash
+      2^16 and 2^17 cells): per encoder 7 train steps (joint, pose-frozen,
+      occupancy-update) with every launch count set to 0 just before and
+      read just after (B3 once per step, B1, B2, B4, B5 never), a profile of
+      three joint steps (chiprun_out/step_profile_<encoder>.txt) and the
+      peak memory; B3 against its plain version on the inputs met there;
+      each encoder and backward mode on one keyframe's points on the card
+      (three times) against the CPU (forward within 1e-6, gradients within
+      1e-5 of their largest entry, tied corner draws left out); the offline
+      FDT leg of 3d on its keyframes with the "cell" field, 3 epochs (the
+      last held-out L1 under 0.8x the first; B3 once per step and render);
+      and the data prep: the native library built with g++ and each of its
+      functions equal to its numpy path on a 128 x 1024 sweep, both timed,
+      and ``scan_from_arrays`` with a harvester box;
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
-     with the MLP in f32 and in bf16, and both hash-on fields with an f32 MLP
-     (64 samples per ray: the strided table gradient is active), each also
-     from the same rays and samples on both devices;
+     with the MLP in f32 and in bf16, and both hash-on fields and the three
+     alternate encoders with an f32 MLP (64 samples per ray: the strided
+     table gradient is active), each also from the same rays and samples on
+     both devices (the whole step of FusedHash and the alternate encoders
+     reported, not held);
   5. profile five more joint steps of each path (torch.profiler): device
      time by operator and the device's idle share, into
      chiprun_out/step_profile.txt (hash off), step_profile_hash.txt and
@@ -338,7 +359,7 @@ def _field_step(opt, cfg, scube, state, bundle, z, draws):
     params = {"sigma": opt.tree_map(lambda _: next(it), state.params["sigma"])}
     bundle = bundle._replace(origins=bundle.origins.detach().requires_grad_(True),
                              directions=bundle.directions.detach().requires_grad_(True))
-    render = opt.render_rays(params, bundle, z, nerf, draws.enc_key, point_chunks=1)
+    render = opt.render_rays(params, bundle, z, nerf, draws.enc_key, point_chunks=1, enc_u=draws.u_enc)
     loss, _ = opt.compute_lidar_loss(render, bundle, cfg.world_scale, cfg.loss,
                                      state.global_step.to(torch.float32), 0)
     grads = torch.autograd.grad(loss, leaves + [bundle.origins, bundle.directions])
@@ -926,29 +947,16 @@ def _cli_drive(root: Path, out_dir: Path, wrappers) -> dict:
     return res
 
 
-def _offline_leg(out_dir: Path, wrappers, dev) -> dict:
-    """The offline FDT map optimization (``optimize_implicit_map``) at the
-    triad-nohash leg of scripts/exp_encoder_flagship.py: an 80-tree forest,
-    40 keyframes on two circles, ray range (2.5, 45), window 16, 512 + 64
-    rays, 512 samples in two point chunks, MASK trunk-band rays,
-    n_samples_test 1024, the exact occupancy update, at most 8 epochs with
-    the held-out L1 early stop at 1.05 m. Fails on a non-finite L1 or a
-    final L1 of 1.15 m or more, or launches other than the steps and eval
-    renders imply: per train step B1 and B2 once per point chunk, B3 once;
-    per eval render (6 held-out scans an epoch) B1 once per field chunk
-    (NeRFConfig.point_chunks), B3 once. B1 and B3 are then held against
-    their plain versions on the first inputs they met at each shape, which
-    must include the window-16 step's and an eval render's."""
+def _forest_keyframes():
+    """(keyframes, cube, ray range, seconds) of the offline FDT legs: an
+    80-tree forest, 40 keyframes on two circles of 32 x 512 returns ray-cast
+    on the host."""
     import numpy as np
 
     from loner_tpu_torch.data import synthetic
     from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
     from loner_tpu_torch.geometry.world_cube import compute_world_cube
-    from loner_tpu_torch.mapping import optimizer as opt
-    from loner_tpu_torch.mapping.keyframe import KeyFrame, stack_window
-    from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
-    from loner_tpu_torch.models import sampling
-    from loner_tpu_torch.ops import cp_kernel
+    from loner_tpu_torch.mapping.keyframe import KeyFrame
 
     t0 = time.perf_counter()
     n_kfs, extent = 40, 40.0
@@ -968,12 +976,44 @@ def _offline_leg(out_dir: Path, wrappers, dev) -> dict:
         kfs.append(KeyFrame(scan=make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384), timestamp=t,
                             pose_index=i, tracked_pose=T, gt_pose=T,
                             sky=sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t, pad_to=1024)).compute_band_indices())
-    setup_s = time.perf_counter() - t0
+    return kfs, cube, ray_range, time.perf_counter() - t0
+
+
+def _offline_cfg(cube, ray_range):
+    """The offline FDT legs' mapper: window 16, 512 + 64 rays, 512 samples in
+    two point chunks, MASK trunk-band rays, 1024 samples a test ray."""
+    from loner_tpu_torch.mapping import optimizer as opt
+
     base = opt.MapperConfig()
-    cfg = base._replace(
+    return base._replace(
         nerf=base.nerf._replace(num_colors=1), ray_range=ray_range, world_scale=cube.scale_factor, window_size=16,
         max_keyframes=64, rays_per_kf=512, sky_rays_per_kf=64, n_samples_train=512, n_samples_test=1024,
         rays_strategy="MASK", train_point_chunks=2)
+
+
+def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
+    """The offline FDT map optimization (``optimize_implicit_map``) at the
+    triad-nohash leg of scripts/exp_encoder_flagship.py, on ``forest``
+    (:func:`_forest_keyframes`): an 80-tree forest,
+    40 keyframes on two circles, ray range (2.5, 45), window 16, 512 + 64
+    rays, 512 samples in two point chunks, MASK trunk-band rays,
+    n_samples_test 1024, the exact occupancy update, at most 8 epochs with
+    the held-out L1 early stop at 1.05 m. Fails on a non-finite L1 or a
+    final L1 of 1.15 m or more, or launches other than the steps and eval
+    renders imply: per train step B1 and B2 once per point chunk, B3 once;
+    per eval render (6 held-out scans an epoch) B1 once per field chunk
+    (NeRFConfig.point_chunks), B3 once. B1 and B3 are then held against
+    their plain versions on the first inputs they met at each shape, which
+    must include the window-16 step's and an eval render's."""
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.mapping.keyframe import stack_window
+    from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
+    from loner_tpu_torch.models import sampling
+    from loner_tpu_torch.ops import cp_kernel
+
+    kfs, cube, ray_range, setup_s = forest
+    n_kfs = len(kfs)
+    cfg = _offline_cfg(cube, ray_range)
     offline = OfflineConfig(window_size=16, iterations_per_window=32, max_epochs=8, n_eval_scans=6,
                             eval_rays_per_scan=1024)
     print(f"offline FDT leg: forest of 80 trees, {n_kfs} scans ray-cast on the host in {setup_s:.1f} s", flush=True)
@@ -1038,7 +1078,7 @@ def _offline_leg(out_dir: Path, wrappers, dev) -> dict:
         raise AssertionError(f"offline FDT leg: L1 history {result.l1_history}, final at or over 1.15 m")
     if int(result.state.skipped_steps):
         raise AssertionError(f"offline FDT leg: {int(result.state.skipped_steps)} steps skipped")
-    del result, state, step, window, kfs
+    del result, state, step, window
     torch.cuda.empty_cache()
     return res
 
@@ -1200,7 +1240,7 @@ def _camera_card_vs_cpu(mcfg, cube, state, win, n_rays: int, dev) -> dict:
 
     cpu = torch.device("cpu")
     draws = cam.draw_camera_step(mcfg, win, n_rays, torch.Generator().manual_seed(2), cpu)
-    draws_card = cam.CameraDraws(*(t.to(dev) for t in draws))
+    draws_card = tree_map(lambda t: t.to(dev), draws)
     cube_c, state_c, win_c = cube.to(cpu), tree_map(lambda t: t.to(cpu), state), cam.CameraWindow(*(t.to(cpu)
                                                                                                     for t in win))
     built = {"card": cam.camera_rays_and_samples(mcfg, cube, win, state.occ_grid, draws_card),
@@ -1753,6 +1793,288 @@ def _debug_run(root: Path, out_dir: Path, wrappers, dev) -> dict:
     return res
 
 
+ENCODERS = ("exact", "packed", "cell")  # the alternate hash encoders of leg 3h
+HARVESTER_BOX = ((4.0, 0.0, -1.0), (3.0, 3.0, 2.0))  # a machine 2.5-5.5 m ahead of the sensor (centre, size)
+
+
+def _corner_ties(w: torch.Tensor, u: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
+    """(L, N) bool: the (level, point) pairs whose corner draw ``u >
+    cumsum(w)`` (w (L, 8, N), u (L, N)) turns on a uniform within ``tol`` of
+    the CDF, which two devices summing in other orders may decide an ulp
+    apart."""
+    cdf = torch.cumsum(w.double(), dim=1)
+    return torch.any((cdf - u.double()[:, None, :]).abs() <= tol, dim=1)
+
+
+def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
+    """Each alternate encoder and backward mode at the flagship's sigma
+    config (16 levels x 2 features, 2^18 vertices; CellHash 2^16 cells) on
+    one keyframe's sampled points (576 rays x 512 samples), the same O(1)
+    table, cotangent and corner uniforms on the card and the CPU: the forward
+    within 1e-6 and the point gradient within 1e-5 of their largest entry;
+    the table gradient, summed by atomics on the card in a varying order
+    (up to thousands of terms an entry at the coarse levels), within 1e-5
+    normwise (its largest error against its largest entry, which reaches
+    1e-5, is reported). The tied (level, point)
+    pairs of a corner-sampled mode get a zero cotangent on both devices.
+    The card's fwd + bwd ms of each mode beside."""
+    from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode_t
+    from loner_tpu_torch.models.nerf import cell_config_from
+    from loner_tpu_torch.ops import cell_hash as ch
+    from loner_tpu_torch.ops import hash_encode_fast as hf
+
+    dev = pts.device
+    pts_cpu = pts.cpu()
+    enc = HashEncodingConfig()
+    l, n = enc.n_levels, pts.shape[1]
+    gen = torch.Generator().manual_seed(11)
+    hash_table = torch.rand((l, 2, enc.table_size), generator=gen) * 2 - 1
+    c_exact, c_l1 = cell_config_from(enc, "exact"), cell_config_from(enc, "level1")
+    cell_table = torch.rand((l, c_exact.table_size, 16), generator=gen) * 2 - 1
+    u = torch.rand((l, n), generator=gen)
+
+    def level1_ties(p):  # (1, N): the points whose chosen level's draw ties
+        choice = ch._jitter_level_choice(p, l)
+        scaled = p * torch.as_tensor(c_l1.level_scales().astype("float32"))[choice][None] + 0.5
+        return _corner_ties(ch._trilinear_w(scaled - torch.floor(scaled))[None], u[:1])
+
+    modes = {  # name -> (table, encode(table, pts, u), tied (L, N) pairs or (1, N) points, or None)
+        "exact": (hash_table, lambda t, p, u: hash_encode_t(t, p, enc), None),
+        "packed": (hash_table, lambda t, p, u: hf.hash_encode_packed_t(t, p, enc), None),
+        "packed_corner": (hash_table, lambda t, p, u: hf.hash_encode_packed_t(t, p, enc, u=u),
+                          _corner_ties(hf._fused_indices(pts_cpu, enc)[1], u)),
+        "cell_exact": (cell_table, lambda t, p, u: ch.cell_hash_encode_t(t, p, c_exact), None),
+        "cell_level1": (cell_table, lambda t, p, u: ch.cell_hash_encode_t(t, p, c_l1), None),
+        "cell_level1_corner": (cell_table, lambda t, p, u: ch.cell_hash_encode_t(t, p, c_l1, u=u),
+                               level1_ties(pts_cpu)),
+    }
+    rows = {}
+    for name, (table, fn, ties) in modes.items():
+        g = torch.randn((l, 2, n), generator=gen)
+        if ties is not None:
+            g = torch.where(ties[:, None, :], torch.zeros(()), g)
+        g = g.reshape(2 * l, n)
+        # the CPU once; the card three times (its scatters' atomics sum in
+        # a varying order): the largest error of the three is held
+        errs = {"forward": 0.0, "d_table": 0.0, "d_pts": 0.0, "d_table_normwise": 0.0}
+        ref = None
+        for d in (torch.device("cpu"), dev, dev, dev):
+            t = table.to(d).clone().requires_grad_(True)
+            p = pts_cpu.to(d).clone().requires_grad_(True)
+            out = fn(t, p, u.to(d))
+            torch.sum(out * g.to(d)).backward()
+            got = [x.detach().cpu() for x in (out, t.grad, p.grad)]
+            del t, p, out
+            if ref is None:
+                ref = got
+                continue
+            for k, a, b in zip(errs, got, ref):
+                errs[k] = max(errs[k], float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            errs["d_table_normwise"] = max(errs["d_table_normwise"], _rel(got[1], ref[1]))
+        del ref, got
+        t_card, p_card = table.to(dev).clone().requires_grad_(True), pts.detach().clone().requires_grad_(True)
+        g_card, u_card = g.to(dev), u.to(dev)
+
+        def fwd_bwd():
+            torch.sum(fn(t_card, p_card, u_card) * g_card).backward()
+
+        ms = _event_ms(fwd_bwd, 3, 1)
+        rows[name] = {"max_err_share": errs, "tied": 0 if ties is None else int(ties.sum()), "card_fwd_bwd_ms": ms,
+                      "ok": errs["forward"] <= 1e-6 and errs["d_table_normwise"] <= 1e-5 and errs["d_pts"] <= 1e-5}
+        del t_card, p_card, g_card, u_card
+        torch.cuda.empty_cache()
+    print("leg 3h, the encoders on the card against the CPU (" + f"{n} points; max abs error / largest entry, "
+          "d_table also normwise): "
+          + "; ".join(f"{k}: fwd {r['max_err_share']['forward']:.2e}, d_table {r['max_err_share']['d_table']:.2e} "
+                      f"({r['max_err_share']['d_table_normwise']:.2e} normwise), "
+                      f"d_pts {r['max_err_share']['d_pts']:.2e}, tied {r['tied']}, fwd+bwd "
+                      f"{r['card_fwd_bwd_ms']:.2f} ms" for k, r in rows.items()), flush=True)
+    bad = {k: r for k, r in rows.items() if not r["ok"]}
+    if bad:
+        raise AssertionError(f"leg 3h: an encoder on the card and the CPU differ: {bad}")
+    return rows
+
+
+def _cell_offline(forest, wrappers, dev) -> dict:
+    """The offline FDT leg of 3d on its keyframes with the CellHash field
+    (scripts/exp_encoder_flagship.py's "cell" encoder), cut to 3 epochs: no
+    skipped step, the last epoch's held-out L1 under 0.8x the first's, B3
+    once per step and eval render and no other kernel."""
+    from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
+
+    kfs, cube, ray_range, _ = forest
+    cfg = _offline_cfg(cube, ray_range)
+    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_impl="cell"))
+    offline = OfflineConfig(window_size=16, iterations_per_window=32, max_epochs=3, n_eval_scans=6,
+                            eval_rays_per_scan=1024)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = optimize_implicit_map(cfg, cube, kfs, offline, device=dev, log_fn=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    renders = offline.n_eval_scans * result.epochs_run
+    launches = _check_launches("leg 3h, cell offline", wrappers, {"pdf_sample": result.iterations + renders})
+    l1 = result.l1_history
+    res = {"l1_history_m": l1, "epochs": result.epochs_run, "iterations": result.iterations,
+           "train_s": result.wall_time_s - result.eval_time_s, "eval_s": result.eval_time_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "skipped_steps": int(result.state.skipped_steps)}
+    print(f"leg 3h, cell offline: L1 history {[round(x, 4) for x in l1]} m over {result.epochs_run} epochs, "
+          f"{result.iterations} steps; training {res['train_s']:.1f} s, eval {res['eval_s']:.1f} s; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    if res["skipped_steps"] or not all(math.isfinite(x) for x in l1) or not l1[-1] < 0.8 * l1[0]:
+        raise AssertionError(f"leg 3h, cell offline: L1 history {l1}, {res['skipped_steps']} steps skipped "
+                             "(gate: the last under 0.8x the first, none skipped)")
+    del result
+    torch.cuda.empty_cache()
+    return res
+
+
+def _native_prep(out_dir: Path) -> dict:
+    """The data prep's host library: built with g++ (it must build and load),
+    each of its five functions against its numpy path on one Ouster-size
+    sweep (128 x 1024 returns, BagConversionConfig's topic /os_cloud_node/points)
+    with both paths timed, and ``scan_from_arrays`` with the harvester box."""
+    import numpy as np
+
+    from loner_tpu_torch.data import rosbag_convert as rb
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.runtime import native
+
+    found = (native._lib_dir() / native._LIB_NAME).exists()  # built by an earlier run in this checkout
+    t0 = time.perf_counter()
+    native.build_native()
+    build_s = time.perf_counter() - t0
+    (out_dir / "native_build.log").write_text(native.build_log)
+    if not native.has_native():
+        raise AssertionError(f"leg 3h: the native library did not build or load: {native.build_log}")
+    scene = synthetic.Scene.default()
+    pose = synthetic.circular_trajectory(n_poses=4, radius=6.0)[0][0]
+    dirs, dists, stamps, hit = synthetic.simulate_scan(scene, pose, 0.0, n_channels=128, n_azimuth=1024,
+                                                       max_range=60.0, rng=np.random.default_rng(3), noise_std=0.01)
+    ranges = np.where(hit, dists, 0.0).astype(np.float32)  # an Ouster reports 0 for no return
+    pts = dirs * ranges[:, None]
+    cases = {
+        "extract_cloud": (pts, stamps, hit, 0.9, 16384),
+        "voxel_downsample": (pts[hit], 0.2),
+        "box_filter": (pts, hit, *HARVESTER_BOX),
+        "range_filter": (ranges, hit, 1.0, 40.0),
+        "spherical_occupancy": (dirs, hit, 1024, 128, -math.pi / 6, math.pi / 2),
+    }
+    rows = {}
+    for name, args in cases.items():
+        lib_fn, np_fn = getattr(native, name), getattr(native, f"{name}_np")
+        lib, ref = lib_fn(*args), np_fn(*args)
+        equal = all(np.array_equal(a, b) for a, b in zip(lib if isinstance(lib, tuple) else (lib,),
+                                                          ref if isinstance(ref, tuple) else (ref,)))
+
+        def wall_ms(fn, reps=5):
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn(*args)
+                times.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(times))
+
+        rows[name] = {"equal": equal, "library_ms": wall_ms(lib_fn), "numpy_ms": wall_ms(np_fn)}
+    t = time.perf_counter()
+    times = rb.fusion_portable_times(len(pts), 1024, 0.0)
+    dirs_out, dist_out, t_out = rb.scan_from_arrays(pts.astype(np.float64), times, rb.BagConversionConfig(
+        remove_box_center=HARVESTER_BOX[0], remove_box_size=HARVESTER_BOX[1]))
+    scan_ms = (time.perf_counter() - t) * 1e3
+    in_box = int((hit & ~native.box_filter_np(pts, hit, *HARVESTER_BOX)).sum())
+    res = {"build_s": build_s, "found_built": found, "points": len(pts), "returns": int(hit.sum()), "functions": rows,
+           "scan_from_arrays": {"kept": len(dist_out), "in_box": in_box, "ms": scan_ms}}
+    print(f"leg 3h, data prep: native library {'found built' if found else 'built'} in {build_s:.2f} s; on a "
+          f"128 x 1024 sweep ({int(hit.sum())} "
+          "returns), library ms / numpy ms: " + ", ".join(
+              f"{k} {r['library_ms']:.3f} / {r['numpy_ms']:.3f} ({'equal' if r['equal'] else 'DIFFER'})"
+              for k, r in rows.items())
+          + f"; scan_from_arrays with the harvester box kept {len(dist_out)} of {int(hit.sum())} returns "
+          f"({in_box} in the box) in {scan_ms:.1f} ms", flush=True)
+    if not all(r["equal"] for r in rows.values()):
+        raise AssertionError(f"leg 3h: the native library and the numpy path differ: {rows}")
+    if not (len(dist_out) == int(hit.sum()) - in_box and np.all(np.diff(t_out) >= 0)
+            and np.allclose(np.linalg.norm(dirs_out, axis=1), 1.0, atol=1e-5) and dist_out.min() >= 0.3):
+        raise AssertionError("leg 3h: scan_from_arrays kept the wrong returns")
+    return res
+
+
+def _encoders_reduced(dev, joint) -> dict:
+    """Phase 4 for the alternate encoders: one reduced-depth step on the card
+    and the CPU, as the FusedHash one (tables scaled to 0.1, the L2
+    selection). Their finest cells are as fine as FusedHash's, so the whole
+    step is reported and the field from the same rays and samples held."""
+    from loner_tpu_torch.flagship import flagship
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.models.nerf import NeRFConfig
+
+    reduced = {}
+    for k in ENCODERS:
+        hc = opt.MapperConfig(nerf=NeRFConfig(encoding_impl=k, compute_dtype="float32"))
+        hc = hc._replace(loss=hc.loss._replace(loss_selection="L2_JS"))
+        reduced[k] = _card_vs_cpu(opt, flagship, hc, dev, joint, 1e-4, f"{k}, float32 MLP, L2_JS",
+                                  whole_step_gated=False, hash_scale=1e3)
+    return reduced
+
+
+def _encoders_leg(out_dir: Path, wrappers, dev, forest, flags) -> dict:
+    """3h: the three alternate encoders ("exact", "packed", "cell") at full
+    width, and the data prep. Per encoder, flagship train steps (joint,
+    pose-frozen, occupancy-update) with every launch count set to 0 just
+    before and read just after (B3 once per step, B1, B2, B4, B5 never), a
+    profile of three joint steps (chiprun_out/step_profile_<encoder>.txt),
+    the peak memory; B3 against its plain version on the inputs it met;
+    each encoder and backward mode on the card against the CPU; the cell
+    field trained offline on 3d's forest; the native library."""
+    from loner_tpu_torch.flagship import flagship
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.models import sampling
+    from loner_tpu_torch.models.nerf import NeRFConfig
+
+    joint, frozen, occ = flags
+    plan = [("joint", joint)] * 3 + [("frozen", frozen)] * 2 + [("occ_update", occ)] * 2
+    steps, pdf_in, pts, part_s = {}, {}, None, {}
+    t0 = time.perf_counter()
+    with _first_inputs(sampling, "pdf_sample", pdf_in):
+        for impl in ENCODERS:
+            cfg, cube, state, window = flagship(device=dev, cfg=opt.MapperConfig(nerf=NeRFConfig(encoding_impl=impl)))
+            step, state, mask, rec = _drive(f"leg 3h, {impl}", opt, cfg, cube, state, window, plan, wrappers,
+                                            {"pdf_sample": len(plan)})
+            rec["profile"] = _profile(_steps(step, state, window, joint, mask), 3, rec["step_ms"]["joint"],
+                                      out_dir / f"step_profile_{impl}.txt")
+            steps[impl] = rec
+            if pts is None:  # one keyframe's sampled points (576 rays x 512 samples), in [0, 1]
+                d = opt.draw_step(cfg, window, torch.Generator(device=dev).manual_seed(5), dev)
+                with torch.no_grad():
+                    b = opt.build_window_rays(state.poses, window, cube.to(dev), cfg, d.ray_idx, d.sky_idx)
+                    z = sampling.occ_grid_sampler_z_vals(b, state.occ_grid, cfg.n_samples_train, cfg.perturb,
+                                                         d.u_strat, d.u_pdf)
+                    p = (b.origins.T[:, :, None] + b.directions.T[:, :, None] * z[None]).reshape(3, -1)
+                    pts = ((p[:, : p.shape[1] // cfg.window_size] + 1.0) / 2.0).contiguous()
+            del step, state, window
+            torch.cuda.empty_cache()
+    met = _check_met_inputs("leg 3h", {}, pdf_in)
+    del pdf_in
+    print("leg 3h, flagship steps: " + "; ".join(
+        f"{k}: joint {r['step_ms']['joint']:.2f} ms wall, device busy {r['profile']['busy_ms']:.2f} ms, idle share "
+        f"{r['profile']['idle_share']:.3f}, peak {r['peak_mem_gib']:.2f} GiB" for k, r in steps.items()), flush=True)
+    part_s["steps"] = time.perf_counter() - t0
+    encoders = _encoders_card_vs_cpu(pts)
+    del pts
+    torch.cuda.empty_cache()
+    part_s["card_vs_cpu"] = time.perf_counter() - t0 - sum(part_s.values())
+    cell_offline = _cell_offline(forest, wrappers, dev)
+    part_s["cell_offline"] = time.perf_counter() - t0 - sum(part_s.values())
+    native = _native_prep(out_dir)
+    part_s["native"] = time.perf_counter() - t0 - sum(part_s.values())
+    print(f"leg 3h: {sum(part_s.values()):.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")",
+          flush=True)
+    return {"steps": steps, "b3_on_met_inputs": met, "card_vs_cpu": encoders, "cell_offline": cell_offline,
+            "native": native, "seconds": part_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible; nothing was run")
@@ -1781,6 +2103,15 @@ def main() -> None:
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernels_build.log").write_text(kernels.build_log)
+    if sys.argv[1:] == ["--only", "3h"]:  # leg 3h alone: no kernel line and no device line
+        joint = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=False, do_occ_update=False)
+        wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
+        leg = _encoders_leg(out_dir, wrappers, dev, _forest_keyframes(),
+                            (joint, joint._replace(freeze_poses=True), joint._replace(do_occ_update=True)))
+        leg["reduced_step"] = _encoders_reduced(dev, joint)
+        (out_dir / "chip_smoke_3h.json").write_text(json.dumps(leg, indent=1))
+        print("leg 3h passed")
+        return
 
     # the two hash-on fields: the triad's fat-row level (TriadConfig(hash_levels=1))
     # and the 16-level FusedHash (NeRFConfig(encoding_impl="fused"))
@@ -1999,7 +2330,8 @@ def main() -> None:
     # ---- the users' drivers: run_slam over an on-disk sequence, the offline
     # FDT optimization, and the port of bench.py ----------------------------
     cli = _cli_drive(Path(__file__).resolve().parent, out_dir, wrappers)
-    offline = _offline_leg(out_dir, wrappers, dev)
+    forest = _forest_keyframes()
+    offline = _offline_leg(out_dir, wrappers, dev, forest)
     bench_res = _bench(wrappers)
     for r in report[:3]:
         r.update(cli_launches=cli["launches"][r["name"]], offline_launches=offline["launches"][r["name"]],
@@ -2018,6 +2350,12 @@ def main() -> None:
     for r in report[:3]:
         r.update(map_tools_launches={part: n[r["name"]] for part, n in map_tools["launches"].items()},
                  debug_run_launches=map_tools["debug_run"]["launches"][r["name"]])
+
+    # ---- 3h: the alternate encoders at full width, and the data prep -------
+    encoders = _encoders_leg(out_dir, wrappers, dev, forest, (joint, frozen, occ))
+    del forest
+    report[2]["encoders_launches"] = {**{k: v["launches"]["pdf_sample"] for k, v in encoders["steps"].items()},
+                                      "cell_offline": encoders["cell_offline"]["launches"]["pdf_sample"]}
 
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
@@ -2043,9 +2381,11 @@ def main() -> None:
             hc = hc._replace(loss=hc.loss._replace(loss_selection="L2_JS"))
         reduced[k] = _card_vs_cpu(opt, flagship, hc, dev, joint, 1e-4, f"{k}, float32 MLP, {hc.loss.loss_selection}",
                                   whole_step_gated=k != "fused", hash_scale=1e3)
+    reduced.update(_encoders_reduced(dev, joint))
 
     summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
-               "bench": bench_res, "loop_closure": loop, "camera": camera, "map_tools": map_tools, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "bench": bench_res, "loop_closure": loop, "camera": camera, "map_tools": map_tools,
+               "encoders": encoders, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -2,8 +2,8 @@
 
 The port of ``loner_tpu/config/build.py``: the same cfg/ files build the
 port's ``SlamConfig`` field for field. The hash-encoding blocks map to the
-port's ``HashEncodingConfig`` (its configuration only: the default field is
-the gather-free triad).
+port's ``HashEncodingConfig`` (the default field is the gather-free triad,
+which reads only its table size).
 """
 from __future__ import annotations
 

@@ -30,6 +30,7 @@ from loner_tpu_torch.mapping.optimizer import (
     _all_finite,
     _masked_group,
     _tree_unflatten,
+    draw_encoder_uniforms,
     tree_leaves,
 )
 from loner_tpu_torch.models import sampling
@@ -60,6 +61,9 @@ class CameraDraws(NamedTuple):
     u_pdf: Optional[torch.Tensor]  # (N, S/2) inverse-CDF uniforms (OGM)
     enc_key: torch.Tensor  # (2,) int64: the sigma encoder's key words
     enc_key_intensity: torch.Tensor  # (2,) int64: the intensity encoder's
+    # (L, points per chunk): the "cell" intensity encoder's corner uniforms,
+    # shared by every point chunk (None: drawn from enc_key_intensity)
+    u_enc_intensity: Optional[torch.Tensor] = None
 
 
 def upsample_images(images: np.ndarray, masks: np.ndarray, K: np.ndarray, factor: int = 2):
@@ -123,6 +127,9 @@ def draw_camera_step(cfg: MapperConfig, window: CameraWindow, n_rays: int, gener
         u_strat=torch.rand((n_rays, cfg.n_samples_train if uniform else half), generator=generator, device=device),
         u_pdf=None if uniform else torch.rand((n_rays, half), generator=generator, device=device),
         enc_key=randint(2**32, (2,)), enc_key_intensity=randint(2**32, (2,)),
+        u_enc_intensity=draw_encoder_uniforms(cfg.nerf, cfg.nerf.pos_encoding_intensity.n_levels,
+                                              n_rays * cfg.n_samples_train, cfg.nerf.point_chunks, generator,
+                                              device),
     )
 
 
@@ -162,17 +169,19 @@ def camera_rays_and_samples(cfg: MapperConfig, cube, window: CameraWindow, occ_g
 
 
 def camera_loss_and_grads(cfg: MapperConfig, params, bundle: RayBundle, target: torch.Tensor, z_vals: torch.Tensor,
-                          enc_key: torch.Tensor, enc_key_intensity: torch.Tensor):
+                          enc_key: torch.Tensor, enc_key_intensity: torch.Tensor,
+                          u_enc_intensity: Optional[torch.Tensor] = None):
     """The field part of a camera step: render ``bundle`` at ``z_vals`` with
     ``sigma_only=False, detach_sigma=True``, the masked camera loss against
     ``target``, and its gradient with respect to each leaf of
     ``params["intensity"]`` (zeros for a leaf the loss does not reach).
+    ``u_enc_intensity`` is the "cell" intensity encoder's corner uniforms.
     Returns (loss, aux, grads), all detached."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params["intensity"])]
     p = {"sigma": params["sigma"], "intensity": _tree_unflatten(params["intensity"], leaves)}
     with torch.enable_grad():
         render = render_rays(p, bundle, z_vals, cfg.nerf, enc_key, sigma_only=False, detach_sigma=True,
-                             key_intensity=enc_key_intensity)
+                             key_intensity=enc_key_intensity, enc_u_intensity=u_enc_intensity)
         loss, aux = compute_camera_loss(render, target, bundle.valid, cfg.loss)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
@@ -202,7 +211,7 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
             draws = draw_camera_step(cfg, window, n_rays, generator, state.poses.device)
         bundle, target, z_vals = camera_rays_and_samples(cfg, cube, window, state.occ_grid, draws)
         loss, aux, grads = camera_loss_and_grads(cfg, state.params, bundle, target, z_vals, draws.enc_key,
-                                                 draws.enc_key_intensity)
+                                                 draws.enc_key_intensity, draws.u_enc_intensity)
         g_intensity = _tree_unflatten(state.params["intensity"], grads)
         finite = torch.isfinite(loss) & _all_finite(grads)
         with torch.no_grad():

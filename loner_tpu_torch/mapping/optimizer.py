@@ -5,7 +5,8 @@ One call of the step does
 
   build rays from the (differentiable) keyframe poses -> occupancy-guided z
   sampling (kernel B3) -> field encode (TriadField: kernels B1/B2, and B4/B5
-  for its hash level; FusedHash: B4/B5) + sigma MLP ->
+  for its hash level; FusedHash: B4/B5; the cell, packed and exact hash
+  grids: plain gathers and scatters) + sigma MLP ->
   composite -> JS/LOS loss -> backward -> Adam for sigma / intensity / poses
   -> optional occupancy-grid update
 
@@ -21,7 +22,8 @@ that group's parameters, moments and count as they were. Everything is
 selected on the device (``torch.where``), so a step makes no host sync.
 
 Random draws (ray and sky indices or FIXED's permutation, the stratified,
-pdf and occupancy-corner uniforms, the hash encoder's two key words) come in
+pdf and occupancy-corner uniforms, the hash encoder's two key words, the
+"cell" encoder's corner uniforms) come in
 a :class:`StepDraws`; without one the step draws them from its
 ``torch.Generator``. Rays are drawn RANDOM (uniformly per step), MASK (a
 share from each keyframe's trunk band) or FIXED (consecutive slices of one
@@ -45,7 +47,7 @@ from loner_tpu_torch.models import sampling
 from loner_tpu_torch.models.losses import LossConfig, compute_lidar_loss
 from loner_tpu_torch.models.nerf import NeRFConfig, init_nerf
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig, init_occ_grid, occ_grid_cotangent
-from loner_tpu_torch.models.rendering import render_rays
+from loner_tpu_torch.models.rendering import chunk_points, render_rays
 
 
 class MapperConfig(NamedTuple):
@@ -124,6 +126,9 @@ class StepDraws(NamedTuple):
     u_occ: torch.Tensor  # (N, S) occupancy-corner uniforms
     enc_key: torch.Tensor  # (2,) int64 in [0, 2^32): the encoder's two key words
     perm: Optional[torch.Tensor] = None  # (W, P) int64: FIXED's per-keyframe permutation
+    # (L, points per chunk): the "cell" encoder's corner uniforms, one block
+    # shared by every point chunk (None: drawn from enc_key in each chunk)
+    u_enc: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +279,19 @@ def draw_step(cfg: MapperConfig, window, generator: torch.Generator, device,
         u_occ=draw_occ_uniforms(cfg, generator, device) if u_occ is None else u_occ,
         enc_key=torch.randint(0, 2**32, (2,), generator=generator, device=device),
         perm=perm,
+        u_enc=draw_encoder_uniforms(cfg.nerf, cfg.nerf.pos_encoding_sigma.n_levels, n * cfg.n_samples_train,
+                                    cfg.train_point_chunks, generator, device),
     )
+
+
+def draw_encoder_uniforms(nerf: NeRFConfig, n_levels: int, n_points: int, point_chunks: int,
+                          generator: torch.Generator, device) -> Optional[torch.Tensor]:
+    """The "cell" encoder's corner uniforms (L, points per chunk) for a
+    field pass over ``n_points`` in ``point_chunks`` chunks; None for the
+    other encoders, which draw none."""
+    if nerf.encoding_impl != "cell":
+        return None
+    return torch.rand((n_levels, chunk_points(n_points, point_chunks)), generator=generator, device=device)
 
 
 def draw_occ_uniforms(cfg: MapperConfig, generator: torch.Generator, device) -> torch.Tensor:
@@ -371,7 +388,8 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
             )
         else:
             z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
-        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=cfg.train_point_chunks)
+        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=cfg.train_point_chunks,
+                             enc_u=draws.u_enc)
         loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
         return loss, aux, render, bundle
 

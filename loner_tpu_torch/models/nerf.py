@@ -1,20 +1,20 @@
-"""Decoupled sigma/intensity neural field: the TriadField and FusedHash
-branches.
+"""Decoupled sigma/intensity neural field and its encoders.
 
-The port of ``loner_tpu/models/nerf.py`` for ``encoding_impl`` "triad" and
-"fused":
+The port of ``loner_tpu/models/nerf.py``:
 
   * sigma branch:      encode(pos) -> MLP (64 x 1 hidden) -> 1 logit
-  * intensity branch:  encode(pos) [+ SH(viewdir)] -> MLP (64 x 4) -> colors
+  * intensity branch:  encode(pos) [+ SH(viewdirs)] -> MLP (64 x 4) -> colors
 
-"triad" is the TriadField (CP lines + Fourier features, and a fat-row hash
-level when ``triad.hash_levels > 0``); "fused" is the FusedHash per-level
-hash encoding sized by the branch's :class:`HashEncodingConfig`. The
-transposed queries keep features leading and the point axis minor:
-``query_sigma_t`` -> (N,), ``query_nerf_t`` -> (num_colors + 1, N) rows
-[colors..., sigma]. With ``detach_sigma`` (the camera phase) the sigma
-branch runs without gradients. Positions arrive in world-cube coordinates
-[-1, 1]^3 and map to [0, 1]^3.
+``encoding_impl`` picks the encoder: "triad" (the TriadField: CP lines +
+Fourier features, and a fat-row hash level when ``triad.hash_levels > 0``),
+"fused" (the FusedHash per-level hash encoding), "cell" (CellHash, one row
+gather per level), "packed" (the bf16 pair-packed hash grid) and any other
+string the exact multi-resolution hash grid, each sized by the branch's
+:class:`HashEncodingConfig`. The transposed queries keep features leading
+and the point axis minor: ``query_sigma_t`` -> (N,), ``query_nerf_t`` ->
+(num_colors + 1, N) rows [colors..., sigma]. With ``detach_sigma`` (the
+camera phase) the sigma branch runs without gradients. Positions arrive in
+world-cube coordinates [-1, 1]^3 and map to [0, 1]^3.
 """
 from __future__ import annotations
 
@@ -23,27 +23,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode_t, init_hash_table
 from loner_tpu_torch.models.mlp import MLPConfig, init_mlp, mlp_apply_t
 from loner_tpu_torch.models.sh_encoding import sh_encode_t
+from loner_tpu_torch.ops.cell_hash import CellHashConfig, cell_hash_encode_t, init_cell_table
 from loner_tpu_torch.ops.fused_encoder import FusedHashConfig, fused_hash_encode_t, init_fused_table
+from loner_tpu_torch.ops.hash_encode_fast import hash_encode_packed_t
 from loner_tpu_torch.ops.triad_field import TriadConfig, init_triad, triad_encode_t
-
-_PORTED_IMPLS = ("triad", "fused")
-
-
-class HashEncodingConfig(NamedTuple):
-    """The JAX package's multi-resolution hash-grid config. Only the config
-    is ported: the "fused" encoder and the triad's table size read it."""
-
-    n_levels: int = 16
-    n_features_per_level: int = 2
-    log2_hashmap_size: int = 18
-    base_resolution: int = 16
-    per_level_scale: float = 2.0
-
-    @property
-    def output_dim(self) -> int:
-        return self.n_levels * self.n_features_per_level
 
 
 class NeRFConfig(NamedTuple):
@@ -57,9 +43,9 @@ class NeRFConfig(NamedTuple):
     intensity_hidden_dim: int = 64
     intensity_hidden_layers: int = 4
     compute_dtype: str = "bfloat16"
-    encoding_impl: str = "triad"  # "triad" | "fused" ("cell", "packed", "exact": not ported)
+    encoding_impl: str = "triad"  # "triad" | "fused" | "cell" | "packed" | anything else: the exact hash grid
     triad: TriadConfig = TriadConfig()
-    encoding_bwd: str = "strided"  # fused table gradient: "strided" | "exact"
+    encoding_bwd: str = "strided"  # fused: "strided" | "exact"; cell: "level1" ("strided" too) | "exact"
     encoding_bwd_stride: int = 2  # fused, strided: keep every k-th slot group
     encoding_slot_period: int = 512  # fused, strided: samples per ray (S)
     point_chunks: int = 4  # sequential point chunks of render_rays (1 = one pass)
@@ -110,22 +96,30 @@ def fused_config_from(cfg: NeRFConfig, enc: HashEncodingConfig) -> FusedHashConf
     )
 
 
-def _check_impl(cfg: NeRFConfig) -> None:
-    if cfg.encoding_impl not in _PORTED_IMPLS:
-        raise NotImplementedError(
-            f"encoding_impl={cfg.encoding_impl!r}: only {_PORTED_IMPLS} are ported "
-            "(ROADMAP.md, queue A item 2)"
-        )
+def cell_config_from(enc: HashEncodingConfig, bwd: str = "exact") -> CellHashConfig:
+    """Capacity-comparable CellHash config: 2^log2 vertices x 2 features ->
+    2^(log2-2) cells x 16 features."""
+    return CellHashConfig(
+        n_levels=enc.n_levels,
+        log2_cells=max(enc.log2_hashmap_size - 2, 8),
+        base_resolution=enc.base_resolution,
+        per_level_scale=enc.per_level_scale,
+        bwd=bwd,
+    )
 
 
 def _init_table(generator: torch.Generator, cfg: NeRFConfig, enc: HashEncodingConfig, device):
-    if cfg.encoding_impl == "triad":
+    impl = cfg.encoding_impl
+    if impl == "triad":
         return init_triad(generator, cfg._triad_for(enc), device)
-    return init_fused_table(generator, fused_config_from(cfg, enc), device)
+    if impl == "fused":
+        return init_fused_table(generator, fused_config_from(cfg, enc), device)
+    if impl == "cell":
+        return init_cell_table(generator, cell_config_from(enc), device)
+    return init_hash_table(generator, enc, device)
 
 
 def init_nerf(generator: torch.Generator, cfg: NeRFConfig, device="cuda") -> dict:
-    _check_impl(cfg)
     dev = resolve_device(device)
     return {
         "sigma": {
@@ -145,42 +139,54 @@ def _sanitize_sigma(sigma: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_t(cfg: NeRFConfig, table, pos_t: torch.Tensor, enc: HashEncodingConfig,
-              key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``key`` (two words) draws the strided table gradient's rotation; the
-    training step passes fresh words each step."""
-    if cfg.encoding_impl == "triad":
+              key: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``key`` (two words) draws the strided table gradient's rotation
+    ("triad", "fused") or turns on the corner-sampled one ("cell"); the
+    training step passes fresh words each step. ``u`` (L, N) gives "cell"
+    its corner uniforms instead of drawing them from ``key``. "packed"
+    takes no key (its table gradient is exact), as in the JAX package."""
+    impl = cfg.encoding_impl
+    if impl == "triad":
         return triad_encode_t(table, pos_t, cfg._triad_for(enc), key, cfg.encoding_slot_period)
-    return fused_hash_encode_t(table, pos_t, fused_config_from(cfg, enc), key)
+    if impl == "fused":
+        return fused_hash_encode_t(table, pos_t, fused_config_from(cfg, enc), key)
+    if impl == "cell":
+        bwd = "level1" if cfg.encoding_bwd in ("level1", "strided") else "exact"
+        return cell_hash_encode_t(table, pos_t, cell_config_from(enc, bwd), key, u)
+    if impl == "packed":
+        return hash_encode_packed_t(table, pos_t, enc, None)
+    return hash_encode_t(table, pos_t, enc)
 
 
 def query_sigma_t(params: dict, pts_cube_t: torch.Tensor, cfg: NeRFConfig,
-                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  key: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """pts_cube_t (3, N) in [-1, 1] -> sigma logits (N,)."""
-    _check_impl(cfg)
     pos = (pts_cube_t + 1.0) / 2.0
-    h = _encode_t(cfg, params["sigma"]["table"], pos, cfg.pos_encoding_sigma, key)
+    h = _encode_t(cfg, params["sigma"]["table"], pos, cfg.pos_encoding_sigma, key, u)
     sigma = mlp_apply_t(params["sigma"]["mlp"], h, cfg.sigma_mlp_config())  # (1, N)
     return _sanitize_sigma(sigma[0])
 
 
 def query_nerf_t(params: dict, pts_cube_t: torch.Tensor, viewdirs_t: Optional[torch.Tensor], cfg: NeRFConfig,
                  sigma_only: bool = False, detach_sigma: bool = True, key: Optional[torch.Tensor] = None,
-                 key_intensity: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 key_intensity: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
+                 u_intensity: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Transposed query: (1, N) sigma when ``sigma_only``, else
     (num_colors + 1, N) rows [colors..., sigma]. ``key`` draws the sigma
-    encoder's strided table gradient and ``key_intensity`` the intensity
+    encoder's stochastic table gradient and ``key_intensity`` the intensity
     encoder's (the JAX package folds the latter from the former,
-    ``fold_in(key, 1)``; the port takes it as its own draw). With
+    ``fold_in(key, 1)``; the port takes it as its own draw); ``u`` and
+    ``u_intensity`` are the "cell" encoders' corner uniforms. With
     ``detach_sigma`` the sigma branch runs without gradients."""
     if sigma_only:
-        return query_sigma_t(params, pts_cube_t, cfg, key)[None, :]
+        return query_sigma_t(params, pts_cube_t, cfg, key, u)[None, :]
     if detach_sigma:
         with torch.no_grad():
-            sigma = query_sigma_t(params, pts_cube_t, cfg, key)
+            sigma = query_sigma_t(params, pts_cube_t, cfg, key, u)
     else:
-        sigma = query_sigma_t(params, pts_cube_t, cfg, key)
+        sigma = query_sigma_t(params, pts_cube_t, cfg, key, u)
     pos = (pts_cube_t + 1.0) / 2.0
-    h_x = _encode_t(cfg, params["intensity"]["table"], pos, cfg.pos_encoding_intensity, key_intensity)
+    h_x = _encode_t(cfg, params["intensity"]["table"], pos, cfg.pos_encoding_intensity, key_intensity, u_intensity)
     if cfg.enable_view_dependence:
         h_x = torch.cat([h_x, sh_encode_t(viewdirs_t.T, cfg.sh_degree)], dim=0)
     color = torch.sigmoid(mlp_apply_t(params["intensity"]["mlp"], h_x, cfg.intensity_mlp_config()))  # (C, N)

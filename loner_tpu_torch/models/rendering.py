@@ -141,11 +141,16 @@ def composite_peak_adjusted(
 _STRATEGIES = {"default": composite_t, "adjusted": composite_peak_adjusted}
 
 
+def chunk_points(n: int, n_chunks: int) -> int:
+    """The points of each of :func:`_chunked`'s chunks of ``n`` points."""
+    return n if n_chunks <= 1 or n % n_chunks != 0 else n // n_chunks
+
+
 def _chunked(fn, x_t: torch.Tensor, n_chunks: int) -> torch.Tensor:
     """``fn`` over the last axis of ``x_t`` in ``n_chunks`` sequential chunks
     when that divides it (else in one), the results concatenated on it."""
     n = x_t.shape[-1]
-    if n_chunks <= 1 or n % n_chunks != 0:
+    if chunk_points(n, n_chunks) == n:
         return fn(x_t)
     return torch.cat([fn(c) for c in x_t.chunk(n_chunks, dim=-1)], dim=-1)
 
@@ -153,7 +158,8 @@ def _chunked(fn, x_t: torch.Tensor, n_chunks: int) -> torch.Tensor:
 def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
                 key: Optional[torch.Tensor] = None, point_chunks: Optional[int] = None, sigma_only: bool = True,
                 detach_sigma: bool = True, key_intensity: Optional[torch.Tensor] = None,
-                render_strategy: str = "default") -> RenderResult:
+                render_strategy: str = "default", enc_u: Optional[torch.Tensor] = None,
+                enc_u_intensity: Optional[torch.Tensor] = None) -> RenderResult:
     """Evaluate the field at o + d*z and composite by ``render_strategy``
     ("default": :func:`composite_t`; "adjusted":
     :func:`composite_peak_adjusted`). ``sigma_only`` (the
@@ -162,7 +168,10 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
     branch without gradients when ``detach_sigma``. The points go to the
     field in ``point_chunks`` (``cfg.point_chunks`` when None) sequential
     chunks when that divides them, else in one. ``key`` and
-    ``key_intensity`` draw the encoders' strided table gradients."""
+    ``key_intensity`` draw the encoders' stochastic table gradients;
+    ``enc_u`` and ``enc_u_intensity`` (L, points per chunk) are the "cell"
+    encoders' corner uniforms, one block shared by every chunk, as the JAX
+    package draws them from one key per chunk."""
     if render_strategy not in _STRATEGIES:
         raise ValueError(f"Unknown render strategy: {render_strategy}")
     n, s = z_vals.shape
@@ -171,11 +180,12 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
     pts_t = bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z_vals[None]  # (3, N, S)
     flat = pts_t.reshape(3, n * s)
     if sigma_only:
-        raw_t = _chunked(lambda p: query_sigma_t(params, p, cfg, key), flat, point_chunks).reshape(1, n, s)
+        raw_t = _chunked(lambda p: query_sigma_t(params, p, cfg, key, enc_u), flat, point_chunks).reshape(1, n, s)
     else:
         dirs_t = bundle.viewdirs.T[:, :, None].expand(3, n, s).reshape(3, n * s)
         raw_t = _chunked(
-            lambda x: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity),
+            lambda x: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity, enc_u,
+                                   enc_u_intensity),
             torch.cat([flat, dirs_t]), point_chunks,
         ).reshape(-1, n, s)
     rgb, depth, weights, opacity, variance = _STRATEGIES[render_strategy](

@@ -64,17 +64,21 @@ def _unit(rng, n):
 
 
 @functools.lru_cache(maxsize=None)
-def _setup(dtype):
-    """The small flagship of both packages with three colours, a fresh JAX
-    state of that field at the flagship's poses, and a window of B random
-    images at the two keyframes' camera poses."""
+def _setup(dtype, hash_term="off"):
+    """The small flagship of both packages with three colours (and the field
+    of ``hash_term``, its tables scaled from their init to O(0.1) as in
+    tests/test_torch_train_step.py), a fresh JAX state of that field at the
+    flagship's poses, and a window of B random images at the two keyframes'
+    camera poses."""
     from loner_tpu.mapping import optimizer as jopt
 
-    jcfg, jcube, jstate, _ = tp.jax_flagship_tiny(dtype)
+    jcfg, jcube, jstate, _ = tp.jax_flagship_tiny(dtype, hash_term=hash_term)
     jcfg = jcfg._replace(nerf=jcfg.nerf._replace(num_colors=3))
-    _, tcfg = tp.mapper_configs(float(jcube.scale_factor), dtype)
+    _, tcfg = tp.mapper_configs(float(jcube.scale_factor), dtype, hash_term)
     tcfg = tcfg._replace(nerf=tcfg.nerf._replace(num_colors=3))
     jstate = jopt.init_mapper_state(jax.random.PRNGKey(3), jcfg)._replace(poses=jstate.poses)
+    if hash_term != "off":
+        jstate = jstate._replace(params={b: {**p, "table": p["table"] * 1e3} for b, p in jstate.params.items()})
     poses, _ = jsyn.circular_trajectory(n_poses=tp.SCAN["n_keyframes"], radius=6.0, z=1.5)
     tcube = twc.compute_world_cube(poses, ray_range=tp.RAY_RANGE, rebase_to_first_pose=False)
     rng = np.random.default_rng(0)
@@ -91,7 +95,8 @@ def _jax_camera_draws(key, cfg, n_rays):
     repeating its key splits (``camera_optimizer.py:164,105-108``, the OGM
     sampler's ``sampling.py:151`` as ``torch_parity.jax_step_draws``), the
     encoders' keys as their two words (the intensity one folded,
-    ``nerf.py:237``)."""
+    ``nerf.py:237``), and under "cell" the corner uniforms the intensity
+    encoder's backward draws from the folded key in each point chunk."""
     k_pix, k_samp, k_enc = jax.random.split(key, 3)
     kb, ky, kx = jax.random.split(k_pix, 3)
     half = cfg.n_samples_train // 2
@@ -108,6 +113,9 @@ def _jax_camera_draws(key, cfg, n_rays):
         u_pdf=T(jax.random.uniform(k_pdf, (n_rays, half), dtype=jnp.float32)),
         enc_key=T(words(k_enc)),
         enc_key_intensity=T(words(jax.random.fold_in(k_enc, 1))),
+        u_enc_intensity=T(jax.random.uniform(jax.random.fold_in(k_enc, 1), (
+            cfg.nerf.pos_encoding_intensity.n_levels, n_rays * cfg.n_samples_train // cfg.nerf.point_chunks)))
+        if cfg.nerf.encoding_impl == "cell" else None,
     )
 
 
@@ -336,6 +344,26 @@ def test_camera_step_matches_jax(dtype):
     assert torch.equal(new.poses, state.poses) and torch.equal(new.occ_grid, state.occ_grid)
 
 
+@pytest.mark.parametrize("hash_term", ["cell", "packed", "exact"])
+def test_camera_step_with_an_alternate_encoder_matches_jax(hash_term):
+    """The camera step with the alternate encoders in both branches: the
+    loss, the L1 and the intensity gradients (the table's included; under
+    "cell" its corner-sampled gradient from the JAX step's own uniforms)."""
+    jcfg, jcube, jstate, jwin, tcfg, tcube, twin = _setup("float32", hash_term)
+    assert jcfg.nerf.encoding_impl == tcfg.nerf.encoding_impl == hash_term
+    jnew, jaux = jcam.make_camera_train_step(jcfg, jcube, n_rays=N_RAYS)(jstate, jwin, KEY)
+    jloss, jg = _jax_camera_loss_and_grads(jcfg, jcube, jstate, jwin, KEY, N_RAYS)
+    state = state_from_jax(tp.np_tree(jstate), device="cpu")
+    new, aux = tcam.make_camera_train_step(tcfg, tcube, n_rays=N_RAYS, device="cpu")(
+        state, twin, _jax_camera_draws(KEY, jcfg, N_RAYS))
+    assert bool(aux["finite"]) and int(jnew.skipped_steps) == 0
+    np.testing.assert_allclose(float(aux["loss"]), jloss, rtol=TOL["float32"])
+    np.testing.assert_allclose(float(aux["cam_l1"]), float(jaux["cam_l1"]), rtol=TOL["float32"])
+    assert tp.rel_err(aux["grads"]["intensity"], jg["intensity"]) <= TOL["float32"]
+    assert float(np.abs(tp.t2n(aux["grads"]["intensity"]["table"])).max()) > 0
+    assert int(new.opt_intensity.count) == 1 and int(new.global_step) == int(jnew.global_step)
+
+
 def test_camera_step_skips_a_non_finite_step_and_draws_its_own():
     """A NaN image leaves the intensity parameters and moments as they
     were and counts the step in both counters; the step draws from its
@@ -403,7 +431,7 @@ def test_camera_step_on_card_matches_cpu(dtype):
         state = state_from_jax(tp.np_tree(jstate), device=dev)
         win = tcam.CameraWindow(*(t.to(dev) for t in twin))
         step = tcam.make_camera_train_step(tcfg, tcube, n_rays=N_RAYS, device=dev)
-        out[dev] = step(state, win, tcam.CameraDraws(*(t.to(dev) for t in draws)))
+        out[dev] = step(state, win, topt.tree_map(lambda t: t.to(dev), draws))
     (_, a_cpu), (new, a_gpu) = out["cpu"], out["cuda"]
     assert new.global_step.device.type == "cuda"
     tol = 1e-4 if dtype == "float32" else 2.0**-8

@@ -62,6 +62,9 @@ def test_every_module_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 20
+    assert {"loner_tpu_torch.models.hash_encoding", "loner_tpu_torch.ops.hash_encode_fast",
+            "loner_tpu_torch.ops.cell_hash", "loner_tpu_torch.data.rosbag_convert",
+            "loner_tpu_torch.runtime.native"} <= set(MODULES)
 
 
 def test_sources_never_name_jax_or_the_jax_package():
@@ -248,11 +251,20 @@ def test_unported_paths_raise(impl):
         with pytest.raises(NotImplementedError, match=marker):
             _slam(**changes)
         return
-    cfg = tnerf.NeRFConfig(encoding_impl=impl)
-    with pytest.raises(NotImplementedError, match="triad"):
-        tnerf.init_nerf(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=impl):
-        tnerf.query_sigma_t({}, torch.zeros((3, 4)), cfg)
+    # the alternate encoders (queue A item 2) raised until they were ported:
+    # now init_nerf builds the JAX package's table shapes and the sigma
+    # query runs
+    enc = tnerf.HashEncodingConfig(n_levels=4, log2_hashmap_size=10, base_resolution=4)
+    cfg = tnerf.NeRFConfig(encoding_impl=impl, sigma_hidden_dim=8, intensity_hidden_dim=8,
+                           pos_encoding_sigma=enc, pos_encoding_intensity=enc._replace(log2_hashmap_size=11))
+    params = tnerf.init_nerf(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for branch, log2 in (("sigma", 10), ("intensity", 11)):
+        want = (4, 1 << (log2 - 2), 16) if impl == "cell" else (4, 2, 1 << log2)
+        assert tuple(params[branch]["table"].shape) == want
+        assert params[branch]["mlp"]["w"][0].shape[0] == enc.output_dim + (16 if branch == "intensity" else 0)
+    pts = torch.rand((3, 64), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    sigma = tnerf.query_sigma_t(params, pts, cfg)
+    assert sigma.shape == (64,) and bool(torch.all(torch.isfinite(sigma)))
 
 
 @pytest.mark.parametrize("probe", ["bench_dyngather", "bench_gather", "bench_gather2", "bench_honest",

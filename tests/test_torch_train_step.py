@@ -103,11 +103,12 @@ def test_train_step_matches_jax(case, dtype):
 
 
 @pytest.mark.parametrize("case", ["joint", "frozen"])
-@pytest.mark.parametrize("hash_term", ["triad_hash", "fused"])
+@pytest.mark.parametrize("hash_term", ["triad_hash", "fused", "cell", "packed", "exact"])
 def test_hash_on_train_step_matches_jax(hash_term, case):
     """The hash term's strided table gradient is drawn from the JAX step's
-    own encoder key, handed over as ``enc_key``; the table's gradient is in
-    the sigma group and held to the same bound."""
+    own encoder key, handed over as ``enc_key`` (CellHash's corner uniforms,
+    drawn from that key inside the JAX backward, as ``u_enc``); the table's
+    gradient is in the sigma group and held to the same bound."""
     jcfg, _, jstate, _, tcfg, _, _ = _setup("float32", hash_term)
     assert jcfg.nerf.encoding_impl == tcfg.nerf.encoding_impl
     table = jstate.params["sigma"]["table"]

@@ -40,13 +40,21 @@ MAPPER = dict(window_size=2, max_keyframes=4, rays_per_kf=32, sky_rays_per_kf=8,
 SCAN = dict(n_keyframes=2, n_channels=8, n_azimuth=64, pad_to=256, n_sky=32)
 OCC_V = 16
 # the field's hash term: off (the default gather-free triad), the triad's
-# fat-row hash level (L=1, F=4, 2^10 cells), or the 4-level FusedHash (F=2,
-# 2^10 cells, base resolution 4: levels 0-1 dense, 2-3 hashed)
+# fat-row hash level (L=1, F=4, 2^10 cells), or a 4-level hash encoding of
+# 2^12 vertices (F=2) at base resolution 4: the FusedHash and CellHash (2^10
+# cells: levels 0-1 dense, 2-3 hashed), the packed and the exact hash grids
+# (level 0 dense, 1-3 hashed). CellHash runs its exact table gradient with
+# corner sampling: its default "level1" gradient picks each point's level by
+# hashing the point's float bits, and the two packages' samples differ in
+# their last bits (the OGM CDF is summed in other orders: 647 of this step's
+# 2560 points, 539 level choices), so level1 is held on equal points
+# (tests/test_torch_hash_encoders.py)
+_ENCODER_NERF = {"fused": {}, "cell": dict(encoding_bwd="exact"), "packed": {}, "exact": {}}
 HASH = {
     "off": dict(triad={}, enc={}, nerf={}),
     "triad_hash": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=12), nerf={}),
-    "fused": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
-                  nerf=dict(encoding_impl="fused")),
+    **{impl: dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
+                  nerf=dict(encoding_impl=impl, **kw)) for impl, kw in _ENCODER_NERF.items()},
 }
 
 
@@ -113,8 +121,10 @@ def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
     iteration, ``:181-187``), ``sampling.py:151,34`` and ``pdf_kernel.py:90``
     / ``sampling.py:82`` (stratified and pdf uniforms; under UNIFORM one
     stratified draw of S, ``sampling.py:98``), ``optimizer.py:386`` with
-    ``occupancy_grid.py:223`` (occupancy-corner uniforms), and the encoder's
-    key ``k_enc`` as its two words (``fused_encoder.py:454-459``)."""
+    ``occupancy_grid.py:223`` (occupancy-corner uniforms), the encoder's
+    key ``k_enc`` as its two words (``fused_encoder.py:454-459``), and under
+    "cell" the corner uniforms its backward draws from ``k_enc`` in each
+    point chunk (``cell_hash.py:190``)."""
     w = window.dirs.shape[0]
     p = window.dirs.shape[1]
     s = window.sky_dirs.shape[1]
@@ -151,6 +161,9 @@ def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
         ),
         enc_key=np.asarray(k_enc, np.uint32).astype(np.int64),  # the key's two words
         perm=np.stack(perm).astype(np.int64) if fixed else None,
+        u_enc=np.asarray(jax.random.uniform(
+            k_enc, (cfg.nerf.pos_encoding_sigma.n_levels, n * cfg.n_samples_train // cfg.train_point_chunks)))
+        if cfg.nerf.encoding_impl == "cell" else None,
     )
 
 
