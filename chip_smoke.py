@@ -8,7 +8,8 @@ Run from the root of a checkout, with one card:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --only 3h`` builds the kernels and runs leg 3h
-alone, with its reduced-depth steps, and prints neither result line.)
+alone, with its reduced-depth steps, and prints neither result line;
+``--only 3i`` does the same for leg 3i.)
 
 In order:
   1. print the card's name and power limit, build the kernel library
@@ -124,6 +125,17 @@ In order:
       and the data prep: the native library built with g++ and each of its
       functions equal to its numpy path on a 128 x 1024 sweep, both timed,
       and ``scan_from_arrays`` with a harvester box;
+  3i. the multi-device layer on meshes of cuda:0 listed n times (one
+      controller drives a mesh; the machine has one card, so the shards run
+      in turn and the numbers are the layer's overhead): the flagship
+      hash-off DP step over 1, 2, 4 and 8 shards (wall ms, device busy ms,
+      peak memory; B1-B3 n times a step), DP x TP on the hash-on triad at
+      (2, 2) and (4, 2), EP over 4 submaps of 3d's forest, 3e's pose graph
+      over 8 devices, the camera step under a 2-device mesh, LonerSLAM
+      with the tracker on device 0 and the mapper over [0, 0] (ATE under
+      0.3 m) and ``dryrun_multichip(8)``, each part with every launch count
+      set to 0 just before and read just after, and each sharded result held
+      against the single-device one on the same draws (``_parallel_leg``);
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -1186,7 +1198,8 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
            "ate_tracking_only_m": ate_track, "ate_estimated_m": float(ate_est), "ba_info": ba,
            "windows_its_per_s": [float(x) for x in timing[:, 2]], "track_ms_median": float(np.median(track_ms)),
            "pose_graph_card_vs_cpu": pg_err, "pose_graph_keyframes": int(p6.shape[0]),
-           "jax_quality_r05": {"ate_tracking_only_m": 0.1455, "ate_estimated_m": 0.0298}}
+           "jax_quality_r05": {"ate_tracking_only_m": 0.1455, "ate_estimated_m": 0.0298},
+           "pose_graph_inputs": (p6, factors, kw)}  # for leg 3i; not written to the JSON file
     print(f"loop closure leg: {len(dataset)} scans written in {setup_s:.1f} s, run {wall_s:.1f} s; {n_kfs} keyframes, "
           f"{steps} train steps (schedule {expected_steps}); tracking-only ATE {ate_track:.4f} m, estimated ATE "
           f"{float(ate_est):.4f} m (the JAX package's run on a TPU v5e, QUALITY_r05.json: 0.1455 / 0.0298 m, a "
@@ -2075,6 +2088,408 @@ def _encoders_leg(out_dir: Path, wrappers, dev, forest, flags) -> dict:
             "native": native, "seconds": part_s}
 
 
+def _pad_factors(factors, multiple: int):
+    """``factors`` padded with weight-0 factors (0 -> 0) to a multiple of
+    ``multiple``: the mesh form splits them evenly, and a weight-0 factor
+    adds nothing."""
+    from loner_tpu_torch.parallel.pose_graph import PoseGraphFactors
+
+    pad = -factors.i.shape[0] % multiple
+    return PoseGraphFactors(*(torch.cat([t, torch.zeros((pad,) + t.shape[1:], dtype=t.dtype, device=t.device)])
+                              for t in factors))
+
+
+def _lap_pose_graph():
+    """The pose graph of leg 3e's keyframes when 3e did not run (``--only
+    3i``): its lap (radius 5 m, period 12.6 s, 126 scans) at 16 keyframes
+    0.75 s apart, the odometry of a drifted track and one loop factor of
+    the true first-to-last transform, as tests/test_pose_graph.py builds its
+    distributed case."""
+    import numpy as np
+
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.geometry import se3
+    from loner_tpu_torch.parallel.pose_graph import make_factors, odometry_factors_from_tracking
+
+    poses, _ = synthetic.circular_trajectory(n_poses=126, radius=5.0, period=12.6)
+    gt = np.linalg.inv(poses[0])[None] @ poses[::8][:16]
+    rng = np.random.default_rng(3)
+    drift = [np.eye(4)]
+    for _ in range(15):
+        d = se3.pose_to_matrix(torch.as_tensor(rng.normal(0, 0.01, 6), dtype=torch.float32)).double().numpy()
+        drift.append(drift[-1] @ d)
+    est = np.stack([g @ d for g, d in zip(gt, drift)])
+    edges = odometry_factors_from_tracking(est) + [(0, 15, np.linalg.inv(gt[0]) @ gt[15], 10.0)]
+    p6 = torch.stack([se3.matrix_to_pose(torch.as_tensor(e, dtype=torch.float32)) for e in est])
+    return p6, make_factors(edges), {"n_iters": 5}
+
+
+def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=None) -> dict:
+    """Leg 3i, the multi-device layer on one card: meshes of cuda:0 repeated
+    (one controller, a device listed n times). Each part sets every launch
+    count to 0 just before and reads it just after, and holds its sharded
+    result against the single-device one on the same draws: the loss 1e-6
+    relative, gradients normwise within the CPU tests' 1e-5 (f32 MLP) or
+    2^-8 (the flagship's bf16 MLP: each shard's weight gradient is rounded
+    to bf16, the operand's type, before the shards' sum, where the single
+    step rounds the sum once) plus the spread of two single-device runs
+    (B2's and the table scatter's atomics sum in a varying order;
+    reported). Parts: the flagship hash-off DP step over 1, 2, 4 and 8
+    shards, 5 joint steps each (wall ms, device busy ms from a profile of 5
+    more, peak memory; B1-B3 n a step), the same over 8 shards with an f32
+    MLP, and the non-dividing case, a 3-keyframe window over 2 shards (whole
+    on the first: B1-B3 once a step; the mapper itself never builds such a
+    window, its windows repeat keyframes up to the window size); the hash-on
+    triad flagship DP x TP at (2, 2) and (4, 2), a joint and a pose-frozen
+    step (B1-B4 once a step per data row, B5 per data row with pose
+    gradients; the 2^16-cell table in 2 slabs; wall ms of 4 warm steps and
+    peak memory, device busy ms of the joint step, each beside the single
+    hash-on step's); EP over 4 submaps of 10 of 3d's forest
+    keyframes at the offline widths (512 + 64 rays, 512 samples in 2
+    chunks, MASK), 3 iterations, against each submap trained alone with the
+    JAX package's drift bounds (B1, B2 twice a step, B3 once; each
+    iteration's wall beside the 4 submaps' sequential steps'); the pose
+    graph of 3e's keyframes (``pose_graph``; without it, the lap's graph of
+    :func:`_lap_pose_graph`) over 8 devices against one (1e-4, cost 1e-5);
+    the camera step under a 2-device mesh against none (loss 1e-6, the
+    intensity gradients 1e-5 plus the spread; every leaf on cuda:0);
+    LonerSLAM with the tracker on device 0 and the mapper's mesh [0, 0]
+    over the online cell's first 12 scans (tracking ATE under 0.3 m;
+    B1-B3 twice a step: each window of 8 splits in two); and
+    ``dryrun_multichip(8)`` (B1-B5 8 in DP, 4 in DP x TP, whose 2^10-cell
+    table stays whole)."""
+    import dataclasses
+
+    import numpy as np
+
+    from loner_tpu_torch.flagship import flagship
+    from loner_tpu_torch.geometry import se3
+    from loner_tpu_torch.mapping import camera_optimizer as cam
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.mapping.keyframe import stack_window
+    from loner_tpu_torch.models.nerf import NeRFConfig
+    from loner_tpu_torch.multichip import dryrun_multichip
+    from loner_tpu_torch.ops.triad_field import TriadConfig
+    from loner_tpu_torch.parallel import pose_graph as pg
+    from loner_tpu_torch.parallel import submaps_parallel as sp
+    from loner_tpu_torch.parallel import tp
+    from loner_tpu_torch.parallel.sharding import Mesh, make_sharded_train_step
+
+    t_leg = time.perf_counter()
+    names = [w.__name__ for w in wrappers]
+    BF16 = 2.0**-8
+
+    def mesh(n, model=None):
+        devs = np.empty(n, dtype=object)
+        devs[:] = [dev] * n
+        return Mesh(devs if model is None else devs.reshape(n // model, model),
+                    ("data",) if model is None else ("data", "model"))
+
+    def counted(name, expected, fn):
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _check_launches(f"3i {name}", wrappers, expected)
+
+    def grads_of(aux):
+        return tp.gather_mapper_state({"sigma": aux["grads"]["sigma"], "poses": aux["grads"]["poses"]})
+
+    def held(name, ref, ref2, got, tol):
+        """``got`` (loss, grads) against ``ref``; ``ref2`` a second run of the
+        reference, whose difference from it is the atomics' spread."""
+        loss_err = abs(float(got["loss"]) / float(ref["loss"]) - 1)
+        spread = _rel(grads_of(ref2), grads_of(ref))
+        err = _rel(grads_of(got), grads_of(ref))
+        row = {"loss_rel_err": loss_err, "grad_rel_err": err, "single_spread": spread, "bound": tol + spread}
+        print(f"3i {name}: loss {loss_err:.3e} relative (bound 1e-6), gradients {err:.3e} normwise "
+              f"(bound {tol:.0e} + the single step's run-to-run spread {spread:.3e})", flush=True)
+        if not (loss_err <= 1e-6 and err <= tol + spread):
+            raise AssertionError(f"3i {name}: sharded step against the single one: {row}")
+        return row
+
+    res = {}
+    joint = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=False, do_occ_update=False)
+    frozen = joint._replace(freeze_poses=True)
+
+    # ---- DP: the flagship hash-off step over 1, 2, 4, 8 shards ------------
+    cfg, cube, state, window = flagship(device=dev)
+    mask = torch.ones(cfg.max_keyframes, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    draws = [opt.draw_step(cfg, window, gen, dev) for _ in range(5)]
+    single = opt.make_train_step(cfg, cube, dev)
+    ref = [single(state, window, joint, mask, 0, draws[0])[1] for _ in range(2)]
+    dp = {}
+    for n in (1, 2, 4, 8):
+        step = single if n == 1 else make_sharded_train_step(cfg, cube, mesh(n))
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+
+        def run_steps():
+            st, auxes = state, []
+            for it, d in enumerate(draws):
+                t = time.perf_counter()
+                st, aux = step(st, window, joint, mask, it, d)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                auxes.append(aux)
+            return auxes
+
+        auxes, launches = counted(f"DP over {n}", {k: 5 * n for k in PATH_KERNELS}, run_steps)
+        losses = [float(a["loss"]) for a in auxes]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"3i DP over {n}: non-finite loss {losses}")
+        wall = sum(times[1:]) / len(times[1:])
+        row = {"wall_ms": wall, "wall_ms_all": times, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launches, "losses": losses, "held": held(f"DP over {n}", ref[0], ref[1], auxes[0], BF16)}
+        row["profile"] = _profile(_steps(step, state, window, joint, mask), 5, wall,
+                                  out_dir / f"step_profile_dp{n}.txt")
+        print(f"3i DP over {n}: {wall:.3f} ms a joint step (host clock), device busy {row['profile']['busy_ms']:.3f} "
+              f"ms, peak {row['peak_mem_gib']:.2f} GiB", flush=True)
+        dp[n] = row
+    res["dp"] = dp
+    fcfg = cfg._replace(nerf=cfg.nerf._replace(compute_dtype="float32"))
+    fref = [opt.make_train_step(fcfg, cube, dev)(state, window, joint, mask, 0, draws[0])[1] for _ in range(2)]
+    (_, faux), f_launches = counted("DP over 8, f32 MLP", {k: 8 for k in PATH_KERNELS},
+                                    lambda: make_sharded_train_step(fcfg, cube, mesh(8))(state, window, joint, mask, 0,
+                                                                                         draws[0]))
+    res["dp_8_f32"] = {"launches": f_launches, "held": held("DP over 8, f32 MLP", fref[0], fref[1], faux, 1e-5)}
+    del fref, faux
+    w3 = type(window)(*(t[:3] for t in window))
+    d3 = opt.draw_step(cfg._replace(window_size=3), w3, gen, dev)
+    cfg3 = cfg._replace(window_size=3)
+    ref3 = [opt.make_train_step(cfg3, cube, dev)(state, w3, joint, mask, 0, d3)[1] for _ in range(2)]
+    (_, aux3), launches3 = counted("3 keyframes over 2", {k: 1 for k in PATH_KERNELS},
+                                   lambda: make_sharded_train_step(cfg3, cube, mesh(2))(state, w3, joint, mask, 0, d3))
+    res["window3_over_2"] = {"launches": launches3, "held": held("3 keyframes over 2", ref3[0], ref3[1], aux3, BF16)}
+    del state, window, draws, ref, ref3, aux3, auxes
+    torch.cuda.empty_cache()
+
+    # ---- DP x TP: the hash-on triad flagship -------------------------------
+    hcfg, hcube, hstate, hwindow = flagship(device=dev, cfg=opt.MapperConfig(nerf=NeRFConfig(
+        triad=TriadConfig(hash_levels=1))))
+    hdraws = opt.draw_step(hcfg, hwindow, gen, dev)
+    hsingle = opt.make_train_step(hcfg, hcube, dev)
+
+    def warm(name, step, flags, profiled):
+        """Wall ms of 4 warm calls of ``step`` on the hash-on window (host
+        clock, synchronised), the peak memory since the last reset, and, for
+        ``profiled``, device busy ms over 3 more."""
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            step(hstate, hwindow, flags, mask, 0, hdraws)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        row = {"wall_ms": sum(times) / len(times), "wall_ms_all": times,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if profiled:
+            row["profile"] = _profile(lambda: step(hstate, hwindow, flags, mask, 0, hdraws), 3, row["wall_ms"],
+                                      out_dir / f"step_profile_{name}.txt")
+        busy = f", device busy {row['profile']['busy_ms']:.3f} ms" if profiled else ""
+        print(f"3i {name}: {row['wall_ms']:.3f} ms a warm step (host clock){busy}, peak "
+              f"{row['peak_mem_gib']:.2f} GiB", flush=True)
+        return row
+
+    dptp, hash_single = {}, {}
+    for flags, kind in ((joint, "joint"), (frozen, "frozen")):
+        torch.cuda.reset_peak_memory_stats()
+        href = [hsingle(hstate, hwindow, flags, mask, 0, hdraws)[1] for _ in range(2)]
+        hash_single[kind] = warm(f"hash_on_single_{kind}", hsingle, flags, kind == "joint")
+        for shape in ((2, 2), (4, 2)):
+            n_data = shape[0]
+            step = tp.make_tp_train_step(hcfg, hcube, mesh(shape[0] * shape[1], shape[1]))
+            expected = {**{k: n_data for k in PATH_KERNELS}, "interp_fwd": n_data,
+                        "interp_dpts": n_data if kind == "joint" else 0}
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            (new, aux), launches = counted(f"DP x TP {shape} {kind}", expected,
+                                           lambda: step(hstate, hwindow, flags, mask, 0, hdraws))
+            wall = (time.perf_counter() - t) * 1e3
+            slabs = new.params["sigma"]["table"]["hash"]
+            if [tuple(s.shape) for s in slabs] != [(1, 32768, 128)] * shape[1]:
+                raise AssertionError(f"3i DP x TP {shape}: table slabs {[tuple(s.shape) for s in slabs]}")
+            dptp[f"{shape[0]}x{shape[1]}_{kind}"] = {
+                "launches": launches, "wall_ms_first": wall,
+                **warm(f"dp_tp_{shape[0]}x{shape[1]}_{kind}", step, flags, kind == "joint"),
+                "held": held(f"DP x TP {shape} {kind}", href[0], href[1], aux, BF16)}
+    res["dp_tp"], res["hash_on_single"] = dptp, hash_single
+    del hstate, hwindow, hdraws, href, new, aux, slabs
+    torch.cuda.empty_cache()
+
+    # ---- EP: 4 submaps of the forest at the offline widths ----------------
+    kfs, fcube, ray_range, _ = forest
+    ecfg = _offline_cfg(fcube, ray_range)._replace(window_size=10)
+    # each submap's keyframes index its own pose rows 0..9
+    wins = [stack_window([dataclasses.replace(k, pose_index=k.pose_index - 10 * s) for k in kfs[10 * s:10 * s + 10]],
+                         n_sky_pad=1024, device=dev) for s in range(4)]
+    states = []
+    for s in range(4):
+        st = opt.init_mapper_state(torch.Generator(device=dev).manual_seed(20 + s), ecfg, dev)
+        poses = st.poses.clone()
+        poses[:10] = se3.matrix_to_pose(torch.as_tensor(np.stack([k.gt_pose for k in kfs[10 * s:10 * s + 10]]),
+                                                            dtype=torch.float32, device=dev))
+        states.append(st._replace(poses=poses))
+    ep_flags = frozen._replace(do_occ_update=True)
+    emask = torch.zeros(ecfg.max_keyframes, device=dev)
+    edraws = [[opt.draw_step(ecfg, wins[s], gen, dev) for _ in range(3)] for s in range(4)]
+    seq_step = opt.make_train_step(ecfg, fcube, dev)
+    seq, seq_times = [], [0.0] * 3  # the sequential steps' wall, summed over the submaps per iteration
+    for s in range(4):
+        st = states[s]
+        for it in range(3):
+            t = time.perf_counter()
+            st, _ = seq_step(st, wins[s], ep_flags, emask, it, edraws[s][it])
+            torch.cuda.synchronize()
+            seq_times[it] += (time.perf_counter() - t) * 1e3
+        seq.append(st)
+    par_step = sp.make_submap_parallel_step(ecfg, fcube, mesh(4))
+    stacked, win = sp.stack_states(states), sp.stack_windows(wins)
+
+    def run_ep():
+        st, times = stacked, []
+        for it in range(3):
+            t = time.perf_counter()
+            st, aux = par_step(st, win, ep_flags, emask, it, [edraws[s][it] for s in range(4)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return st, aux, times
+
+    torch.cuda.reset_peak_memory_stats()
+    (stacked, eaux, ep_times), ep_launches = counted("EP 4 submaps", {"cp_fwd": 24, "cp_bwd": 24, "pdf_sample": 12},
+                                                     run_ep)
+    drift = []
+    for s, par in enumerate(sp.unstack_states(stacked, 4)):
+        for a, b in zip(opt.tree_leaves(seq[s].params), opt.tree_leaves(par.params)):
+            diff = (a - b).abs()
+            drift.append((float((diff > 5e-5).float().mean()), float(diff.max())))
+    res["ep"] = {"launches": ep_launches, "iteration_ms": ep_times, "sequential_iteration_ms": seq_times,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "losses": [float(x) for x in eaux["loss"]], "drift_share_max": max(d[0] for d in drift),
+                 "drift_abs_max": max(d[1] for d in drift)}
+    print(f"3i EP: iterations {['%.1f' % t for t in ep_times]} ms (the 4 submaps' steps one after another: "
+          f"{['%.1f' % t for t in seq_times]} ms), losses {res['ep']['losses']}, drift against "
+          f"sequential: share over 5e-5 {res['ep']['drift_share_max']:.2e} (bound 1e-3), max "
+          f"{res['ep']['drift_abs_max']:.2e} (bound 0.03)", flush=True)
+    if not (res["ep"]["drift_share_max"] < 1e-3 and res["ep"]["drift_abs_max"] < 3 * ecfg.lr_sigma):
+        raise AssertionError(f"3i EP: submaps drift from their sequential training: {res['ep']}")
+    del states, stacked, seq, wins, win, edraws
+    torch.cuda.empty_cache()
+
+    # ---- the pose graph over 8 devices -------------------------------------
+    p6, factors, kw = pose_graph if pose_graph is not None else _lap_pose_graph()
+    kw = {k: v for k, v in kw.items() if k != "mesh"}  # 3e's refinement solves on one device
+    factors = _pad_factors(factors, 8)
+    p6 = p6.to(dev)
+    one, cost1 = pg.solve_pose_graph(p6, factors, **kw)
+    (eight, cost8), _ = counted("pose graph over 8", {}, lambda: pg.solve_pose_graph(p6, factors, mesh=mesh(8), **kw))
+    pg_err, cost_err = float((eight - one).abs().max()), abs(float(cost8) / float(cost1) - 1)
+    res["pose_graph"] = {"keyframes": int(p6.shape[0]), "factors": int(factors.i.shape[0]), "max_abs_err": pg_err,
+                         "cost_rel_err": cost_err, "from_leg_3e": pose_graph is not None}
+    print(f"3i pose graph: {res['pose_graph']} (bounds 1e-4, 1e-5)", flush=True)
+    if not (pg_err <= 1e-4 and cost_err <= 1e-5 and eight.device == dev):
+        raise AssertionError(f"3i pose graph over 8 devices against one: {res['pose_graph']}")
+
+    # ---- the camera step under a 2-device mesh ----------------------------
+    ccfg, ccube, cstate, _ = flagship(device=dev)
+    rng = np.random.default_rng(4)
+    imgs = rng.uniform(size=(2, 360, 640, 3)).astype(np.float32)
+    K = np.array([[400.0, 0, 320], [0, 400.0, 180], [0, 0, 1]])
+    cam_poses = np.stack([np.eye(4), np.eye(4)])
+    cwin = cam.stack_camera_window(imgs, np.ones(imgs.shape[:3], bool), cam_poses, K, device=dev)
+    cdraws = cam.draw_camera_step(ccfg, cwin, 1024, gen, dev)
+    cref = [cam.make_camera_train_step(ccfg, ccube, 1024, device=dev)(cstate, cwin, cdraws) for _ in range(2)]
+    (cnew, caux), _ = counted("camera step, mesh of 2", {"cp_fwd": 2 * ccfg.nerf.point_chunks,
+                                                         "cp_bwd": ccfg.nerf.point_chunks, "pdf_sample": 1},
+                              lambda: cam.make_camera_train_step(ccfg, ccube, 1024, mesh=mesh(2))(cstate, cwin, cdraws))
+    c_loss = abs(float(caux["loss"]) / float(cref[0][1]["loss"]) - 1)
+    c_spread = _rel(cref[1][1]["grads"], cref[0][1]["grads"])
+    c_err = _rel(caux["grads"], cref[0][1]["grads"])
+    on_card = all(t.device == dev for t in opt.tree_leaves(cnew))
+    res["camera"] = {"loss_rel_err": c_loss, "grad_rel_err": c_err, "single_spread": c_spread,
+                     "leaves_on_first_device": on_card}
+    print(f"3i camera step, mesh of 2 against none: {res['camera']}", flush=True)
+    if not (c_loss <= 1e-6 and c_err <= 1e-5 + c_spread and on_card):
+        raise AssertionError(f"3i camera step under a mesh: {res['camera']}")
+    del ccfg, cstate, cwin, cref, cnew, caux
+    torch.cuda.empty_cache()
+
+    # ---- LonerSLAM: the tracker on device 0, the mapper's mesh [0, 0] ------
+    res["slam_split"] = _split_slam(root, out_dir, wrappers, dev)
+
+    # ---- the dry run ------------------------------------------------------
+    # every kernel once a shard: 8 in DP, 4 data rows in DP x TP
+    losses, dry_launches = counted("dryrun_multichip(8)", {k: 8 + 4 for k in names},
+                                   lambda: dryrun_multichip(8, devices=[dev] * 8))
+    res["dryrun"] = {"losses": losses, "launches": dry_launches}
+    res["wall_s"] = time.perf_counter() - t_leg
+    res["launches"] = {**{f"dp_{n}": r["launches"] for n, r in dp.items()}, "dp_8_f32": f_launches,
+                       "window3_over_2": launches3, **{f"dp_tp_{k}": v["launches"] for k, v in dptp.items()},
+                       "ep": ep_launches, "slam_split": res["slam_split"]["launches"], "dryrun": dry_launches}
+    print(f"leg 3i: {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+def _split_slam(root: Path, out_dir: Path, wrappers, dev) -> dict:
+    """LonerSLAM from cfg/defaults.yaml as in 3c over the first 12 scans of
+    its loop, with ``tracker.device_index`` 0 and
+    ``mapper.mesh_device_indices`` [0, 0]: the tracker on cuda:0, the
+    mapper's steps over a mesh of cuda:0 twice (each window of 8 keyframes,
+    repeated while fewer exist, in two blocks of 4). Tracking ATE under 0.3
+    m; B1-B3 twice a train step."""
+    import numpy as np
+
+    from loner_tpu_torch.analysis.metrics import ate_rmse
+    from loner_tpu_torch.config.build import build_slam_config
+    from loner_tpu_torch.config.settings import load_settings
+    from loner_tpu_torch.data import synthetic
+    from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
+    from loner_tpu_torch.geometry.world_cube import compute_world_cube
+    from loner_tpu_torch.slam import LonerSLAM
+
+    ray_range = (1.0, 40.0)
+    settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
+        "data": {"ray_range": list(ray_range)}, "tracker": {"motion_compensation": {"enabled": False}}})
+    scene = synthetic.Scene.default()
+    poses, ts = synthetic.circular_trajectory(n_poses=48, radius=5.0, z=1.5, period=9.6)
+    gt = np.linalg.inv(poses[0])[None] @ poses
+    cube = compute_world_cube(poses, ray_range=ray_range, rebase_to_first_pose=True)
+    cfg = build_slam_config(settings, cube.scale_factor)
+    cfg.tracker.device_index = 0
+    cfg.mapper.mesh_device_indices = [0, 0]
+    scans = []
+    for T, t0 in zip(poses[:12], ts):
+        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t0, n_channels=32, n_azimuth=512,
+                                                           max_range=ray_range[1])
+        scans.append((make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384),
+                      sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t0, pad_to=cfg.mapper.n_sky_pad)))
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    slam = LonerSLAM(cfg, cube, device=dev)
+    est = np.stack([slam.process_scan(scan, t, gt_pose=g, sky=sky) for (scan, sky), t, g in zip(scans, ts, gt)])
+    run_dir = out_dir / "slam_split"
+    slam.stop(str(run_dir))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    steps = slam.mapper._host_step
+    # every window holds window_size keyframes (repeated while fewer exist):
+    # the mesh splits each one when it divides it
+    n_mesh = slam.mapper.mesh.size
+    shards = n_mesh if cfg.mapper.mapper.window_size % n_mesh == 0 else 1
+    launches = _check_launches("3i split SLAM", wrappers, {k: steps * shards for k in PATH_KERNELS})
+    ate = float(np.sqrt(np.mean(np.linalg.norm(est[:, :3, 3] - gt[:12, :3, 3], axis=1) ** 2)))
+    mesh_devs = [str(d) for d in slam.mapper.mesh.devices.ravel()]
+    res = {"wall_s": wall_s, "train_steps": steps, "launches": launches, "ate_tracking_m": ate,
+           "tracker_device": str(slam.tracker.device), "mapper_mesh": mesh_devs,
+           "track_ms_median": float(np.median(slam.tracker.track_times)) * 1e3}
+    print(f"3i split SLAM: {res}", flush=True)
+    if not (ate < 0.3 and np.all(np.isfinite(est))):
+        raise AssertionError(f"3i split SLAM: tracking ATE {ate:.4f} m (gate 0.3 m)")
+    shutil.rmtree(run_dir / "checkpoints")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible; nothing was run")
@@ -2112,6 +2527,14 @@ def main() -> None:
         (out_dir / "chip_smoke_3h.json").write_text(json.dumps(leg, indent=1))
         print("leg 3h passed")
         return
+    if sys.argv[1:] == ["--only", "3i"]:  # leg 3i alone: no kernel line and no device line
+        wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
+        leg = _parallel_leg(Path(__file__).resolve().parent, out_dir, wrappers, dev, _forest_keyframes())
+        (out_dir / "chip_smoke_3i.json").write_text(json.dumps(leg, indent=1))
+        print("leg 3i passed")
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only 3h or --only 3i)")
 
     # the two hash-on fields: the triad's fat-row level (TriadConfig(hash_levels=1))
     # and the 16-level FusedHash (NeRFConfig(encoding_impl="fused"))
@@ -2341,6 +2764,7 @@ def main() -> None:
     # camera phase at full width ---------------------------------------------
     root = Path(__file__).resolve().parent
     loop = _loop_closure_leg(root, out_dir, wrappers, dev)
+    pose_graph = loop.pop("pose_graph_inputs")
     camera = _camera_leg(root, out_dir, wrappers, dev)
     for r in report[:3]:
         r.update(loop_closure_launches=loop["launches"][r["name"]], camera_launches=camera["launches"][r["name"]])
@@ -2353,9 +2777,14 @@ def main() -> None:
 
     # ---- 3h: the alternate encoders at full width, and the data prep -------
     encoders = _encoders_leg(out_dir, wrappers, dev, forest, (joint, frozen, occ))
-    del forest
     report[2]["encoders_launches"] = {**{k: v["launches"]["pdf_sample"] for k, v in encoders["steps"].items()},
                                       "cell_offline": encoders["cell_offline"]["launches"]["pdf_sample"]}
+
+    # ---- 3i: the multi-device layer on meshes of cuda:0 ---------------------
+    parallel = _parallel_leg(root, out_dir, wrappers, dev, forest, pose_graph)
+    del forest, pose_graph
+    for r in report:
+        r["parallel_launches"] = {part: n.get(r["name"], 0) for part, n in parallel["launches"].items()}
 
     # ---- reduced depth: the card's step against the CPU's ----------------
     # f32 sums run in other orders on the two devices (bound 1e-4); with the
@@ -2385,7 +2814,7 @@ def main() -> None:
 
     summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
                "bench": bench_res, "loop_closure": loop, "camera": camera, "map_tools": map_tools,
-               "encoders": encoders, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "encoders": encoders, "parallel": parallel, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

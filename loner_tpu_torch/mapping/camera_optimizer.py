@@ -12,7 +12,8 @@ the lidar loss schedule reads) and a non-finite step in ``skipped_steps``.
 
 The pixel and sampler draws come in a :class:`CameraDraws`, or from the
 step's ``torch.Generator``, so that a caller can replay another source's.
-The JAX package's mesh-replicated step is queue A item 3 and raises.
+With a mesh (``mesh=``) the step runs on the mesh's first device, where
+the mesh's state lives.
 """
 from __future__ import annotations
 
@@ -194,11 +195,12 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
     draws=None) -> (new_state, aux)`` on ``device``: ``aux`` holds the loss,
     ``cam_l1``, ``finite`` and ``grads["intensity"]``. Without ``draws`` the
     step draws from ``generator`` (one seeded with 0 on ``device`` when
-    None), kept as ``camera_step.generator``."""
-    if mesh is not None:
-        raise NotImplementedError("make_camera_train_step(mesh=...): a camera step replicated over several cards "
-                                  "is not ported (ROADMAP.md, queue A item 3)")
-    dev = resolve_device(device)
+    None), kept as ``camera_step.generator``. With ``mesh`` (a
+    ``parallel.sharding.Mesh`` whose steps train the lidar branch) the step
+    runs on the mesh's first device, where the mesh's state lives, and
+    leaves every leaf there: the camera batch is small, so it is not
+    split."""
+    dev = resolve_device(device) if mesh is None else mesh.first_device
     cube = cube.to(dev)
     # f32 products stay f32 (the JAX package's precision), never TF32
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -31,8 +31,10 @@ rays, samples and render from fresh draws, without gradients) whose
 diagnostics ``runtime/debug_dump.py`` writes under
 ``<dump_dir>/keyframe_<k>/``.
 
-Not ported, and raising ``NotImplementedError``: a mapper mesh (queue A
-item 3).
+With ``mesh_device_indices`` the mapper's step runs data-parallel over
+those devices (``parallel/sharding.py``): the state, the draws and the
+camera step live on the first of them, and each step splits the window's
+keyframes over all of them.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.data.scan import LidarScan
-from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.device import indexed_device, resolve_device
 from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.mapping.keyframe import KeyFrame, KeyFrameWindow, stack_window
 from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManager, KeyFrameManagerConfig, pose6_to_matrix
@@ -61,6 +63,7 @@ from loner_tpu_torch.mapping.optimizer import (
     init_mapper_state,
     make_train_step,
 )
+from loner_tpu_torch.parallel.sharding import Mesh, make_sharded_train_step
 from loner_tpu_torch.runtime.checkpoints import save_checkpoint
 from loner_tpu_torch.runtime.debug_dump import DebugFlags
 from loner_tpu_torch.runtime.profiling import WindowTimer
@@ -134,29 +137,31 @@ class OnlineMapperConfig:
     checkpoint_dir: Optional[str] = None
     log_losses: bool = False  # per-keyframe, per-phase loss CSVs
     loss_log_dir: Optional[str] = None
-    mesh_device_indices: Optional[List[int]] = None  # queue A item 3
+    # run the step data-parallel over these device indices (of the mapper's
+    # device type: cuda:<i> on the card, the CPU for every index on the CPU)
+    mesh_device_indices: Optional[List[int]] = None
     camera: OnlineCameraConfig = field(default_factory=OnlineCameraConfig)
     debug: DebugFlags = field(default_factory=DebugFlags)
-
-
-def _check_ported(cfg: OnlineMapperConfig) -> None:
-    if cfg.mesh_device_indices:
-        raise NotImplementedError("mesh_device_indices: a mapper over several cards is not ported "
-                                  "(ROADMAP.md, queue A item 3)")
 
 
 class OnlineMapper:
     def __init__(self, cfg: OnlineMapperConfig, cube, device="cuda",
                  step_draws: Optional[Callable[[KeyFrameWindow], StepDraws]] = None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh: Optional[Mesh] = None
+        if cfg.mesh_device_indices:
+            self.mesh = Mesh([indexed_device(self.device, i) for i in cfg.mesh_device_indices], ("data",))
+            self.device = self.mesh.first_device
         self.cube = cube.to(self.device)
         self.state: MapperState = init_mapper_state(
             torch.Generator(device=self.device).manual_seed(cfg.seed), cfg.mapper, self.device)
         self.kf_manager = KeyFrameManager(cfg.keyframe_manager, seed=cfg.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
-        self._train_step = make_train_step(cfg.mapper, self.cube, self.device, self.generator)
+        if self.mesh is None:
+            self._train_step = make_train_step(cfg.mapper, self.cube, self.device, self.generator)
+        else:
+            self._train_step = make_sharded_train_step(cfg.mapper, self.cube, self.mesh, generator=self.generator)
         self._step_draws = step_draws
         # host mirror of state.global_step (reading the device's would sync)
         self._host_step = 0
@@ -328,7 +333,7 @@ class OnlineMapper:
         window = stack_camera_window(np.stack(imgs), np.stack(masks), np.stack(cam_poses), np.asarray(cam.K),
                                      device=self.device)
         if self._camera_step is None:
-            self._camera_step = make_camera_train_step(self.cfg.mapper, self.cube, n_rays=cam.n_rays,
+            self._camera_step = make_camera_train_step(self.cfg.mapper, self.cube, n_rays=cam.n_rays, mesh=self.mesh,
                                                        device=self.device, generator=self.generator)
         for _ in range(cam.iterations_per_window):
             self.state, _ = self._camera_step(self.state, window)

@@ -29,6 +29,16 @@ a :class:`StepDraws`; without one the step draws them from its
 share from each keyframe's trunk band) or FIXED (consecutive slices of one
 permutation per window); samples OGM (occupancy-guided) or UNIFORM.
 
+The step runs over data rows of devices (``make_mesh_train_step``; the
+single-device step is its one-row case): the window's keyframes split into
+contiguous blocks, one a row, each row builds its rays, samples and renders
+on its own device from parameters handed to it inside the autograd graph,
+and the loss, the backward's sum, Adam and the occupancy update run once, on
+the first device, where the state lives (``parallel/sharding.py``,
+``parallel/tp.py``). ``apply_updates=False`` returns the loss and the
+gradients and leaves the state's parameters, moments, poses and grid as
+they were.
+
 ``make_render_fn`` is the evaluation render: ``n_samples_test`` samples per
 ray, no jitter, no gradient. ``make_debug_probe`` is the train step's ray
 build, sampler and render without gradients, returning per-ray and
@@ -47,7 +57,8 @@ from loner_tpu_torch.models import sampling
 from loner_tpu_torch.models.losses import LossConfig, compute_lidar_loss
 from loner_tpu_torch.models.nerf import NeRFConfig, init_nerf
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig, init_occ_grid, occ_grid_cotangent
-from loner_tpu_torch.models.rendering import chunk_points, render_rays
+from loner_tpu_torch.models.rendering import RenderResult, chunk_points, render_rays
+from loner_tpu_torch.ops.fused_encoder import TableSlabs
 
 
 class MapperConfig(NamedTuple):
@@ -138,14 +149,17 @@ class StepDraws(NamedTuple):
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the tensor leaves of dicts, lists and named tuples; None
-    is an empty subtree (an absent draw of :class:`StepDraws`)."""
+    is an empty subtree (an absent draw of :class:`StepDraws`). Named tuples
+    and list subclasses (:class:`TableSlabs`) keep their type."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
-        return type(tree)(*out) if hasattr(tree, "_fields") else out
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return out if type(tree) in (list, tuple) else type(tree)(out)
     return fn(tree, *rest)
 
 
@@ -165,9 +179,10 @@ def _tree_unflatten(tree, leaves):
 
 
 def _all_finite(tensors) -> torch.Tensor:
+    """One verdict, on the first tensor's device, for tensors on any devices."""
     ok = torch.ones((), dtype=torch.bool, device=tensors[0].device)
     for t in tensors:
-        ok = ok & torch.all(torch.isfinite(t))
+        ok = ok & torch.all(torch.isfinite(t)).to(ok.device)
     return ok
 
 
@@ -189,7 +204,8 @@ def adam_init(params) -> AdamState:
 
 def adam_updates(grads, state: AdamState, params, lr: float, gamma: float = 1.0, weight_decay: float = 0.0):
     """(updates, new_state): optax ``chain(add_decayed_weights(wd),
-    adam(lr * gamma**count))`` on one parameter group."""
+    adam(lr * gamma**count))`` on one parameter group, each leaf on its own
+    device (the count and its scalars live on the first leaf's)."""
     if weight_decay:
         grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
     mu = tree_map(lambda g, m: (1 - _B1) * g + _B1 * m, grads, state.mu)
@@ -199,13 +215,18 @@ def adam_updates(grads, state: AdamState, params, lr: float, gamma: float = 1.0,
     bc1 = 1 - _B1**c
     bc2 = 1 - _B2**c
     step = lr if gamma == 1.0 else lr * gamma ** state.count.to(torch.float32)
-    updates = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + _ADAM_EPS) * (-step), mu, nu)
-    return updates, AdamState(count, mu, nu)
+
+    def update(m, v):
+        d = m.device
+        s = step if gamma == 1.0 else step.to(d)
+        return (m / bc1.to(d)) / (torch.sqrt(v / bc2.to(d)) + _ADAM_EPS) * (-s)
+
+    return tree_map(update, mu, nu), AdamState(count, mu, nu)
 
 
 def _select(keep: torch.Tensor, old, new):
     """keep ? old : new, leaf by leaf (keep is a scalar bool tensor)."""
-    return tree_map(lambda o, n: torch.where(keep, o, n), old, new)
+    return tree_map(lambda o, n: torch.where(keep.to(o.device), o, n), old, new)
 
 
 def _masked_group(grads, state: AdamState, params, freeze: bool, finite: torch.Tensor, lr, gamma, wd):
@@ -356,42 +377,155 @@ def build_window_rays(poses: torch.Tensor, window, cube, cfg: MapperConfig, ray_
 # ---------------------------------------------------------------------------
 
 
-def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[torch.Generator] = None):
+def _place(tree, row):
+    """``tree`` on the data row ``row`` (its devices): slab m of a
+    :class:`TableSlabs` on ``row[m]`` (all on ``row[0]`` for a row of one
+    device), every other leaf on ``row[0]``. The copies are differentiable;
+    a leaf already there is itself."""
+    if isinstance(tree, TableSlabs):
+        return TableSlabs(t.to(row[m] if len(row) > 1 else row[0]) for m, t in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: _place(v, row) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_place(t, row) for t in tree]
+    return tree.to(row[0])
+
+
+def split_window(window, devices) -> list:
+    """The window's keyframe axis in ``len(devices)`` contiguous blocks, one
+    per device: ``[(k0, k1, block on its device)]``. The device count must
+    divide the window size."""
+    w, n = window.window_size, len(devices)
+    if w % n:
+        raise ValueError(f"window_size={w} is not divisible by {n} devices")
+    return [(i * w // n, (i + 1) * w // n, type(window)(*(t[i * w // n:(i + 1) * w // n].to(d) for t in window)))
+            for i, d in enumerate(devices)]
+
+
+def _slice(t: Optional[torch.Tensor], a: int, b: int, device) -> Optional[torch.Tensor]:
+    return None if t is None else t[a:b].to(device)
+
+
+def _shard_u_enc(u: Optional[torch.Tensor], p0: int, n_pts: int, n_total: int) -> Optional[torch.Tensor]:
+    """A shard's "cell" corner uniforms: the whole window's block when the
+    shard is the window, else one column per point of the shard's points
+    [p0, p0 + n_pts), each the uniform of its place in the window's point
+    chunks."""
+    if u is None or (p0 == 0 and n_pts == n_total):
+        return u
+    return u[:, (p0 + torch.arange(n_pts, device=u.device)) % u.shape[-1]]
+
+
+def _join(parts, device):
+    """One bundle or render from the shards' (keyframe order), on
+    ``device``: each per-ray field concatenated on the ray axis; a render's
+    points and raw outputs (channels leading) are left out."""
+    if len(parts) == 1:
+        return parts[0]
+    skip = ("points", "raw") if isinstance(parts[0], RenderResult) else ()
+    return type(parts[0])(*(
+        None if name in skip else torch.cat([getattr(p, name).to(device) for p in parts])
+        for name in parts[0]._fields
+    ))
+
+
+def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[torch.Generator] = None,
+                    apply_updates: bool = True):
     """The train step ``train_step(state, window, flags, pose_mask,
     iteration, draws=None) -> (new_state, aux)`` on ``device``.
 
     ``aux`` holds the loss, its terms, ``finite`` and the gradients
     (``grads["sigma"]``, ``grads["intensity"]``, ``grads["poses"]``).
     Without ``draws`` the step draws from ``generator`` (one seeded with 0
-    on ``device`` when None), kept as ``train_step.generator``."""
-    dev = resolve_device(device)
+    on ``device`` when None), kept as ``train_step.generator``. With
+    ``apply_updates=False`` the new state is the old one with only
+    ``global_step`` and ``skipped_steps`` advanced, as the JAX package's."""
+    return make_mesh_train_step(cfg, cube, [(resolve_device(device),)], generator, apply_updates)
+
+
+def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torch.Generator] = None,
+                         apply_updates: bool = True):
+    """The train step over data rows of devices: ``rows[i]`` lists data row
+    i's devices, its compute device first; with hash-table slabs
+    (:class:`TableSlabs`) in the state, ``rows[i][m]`` holds slab m. The
+    state lives on ``rows[0]`` (its slabs on ``rows[0][m]``, the rest on
+    ``rows[0][0]``). A window of W keyframes splits into ``len(rows)``
+    contiguous blocks when that divides W, else runs whole on the first
+    row. Each row builds its block's rays, samples and renders on its
+    compute device; the loss runs once, on the first device, over the rows'
+    per-ray outputs in keyframe order, and the gradients of every row's
+    copy of a parameter arrive summed at the parameter. The draws (one set
+    for the whole window, drawn on the first device) go to each row as its
+    slice."""
+    rows = [tuple(torch.device(d) for d in r) for r in rows]
+    dev = rows[0][0]
     if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
         raise ValueError(f"samples_strategy={cfg.samples_strategy!r}: one of {_SAMPLES_STRATEGIES}")
-    cube = cube.to(dev)
+    cubes = {r[0]: cube.to(r[0]) for r in rows}
     # f32 products stay f32 (the JAX package's precision), never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     scale = cfg.world_scale
+    per_kf = cfg.rays_per_kf + cfg.sky_rays_per_kf
+    n_samples = cfg.n_samples_train
     # the strided table gradient's slot period is the samples per ray
     # (points arrive flattened (rays, S))
-    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=cfg.n_samples_train))
+    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=n_samples))
 
-    def forward(params, poses, occ_grid, window, draws, iteration, global_step):
-        ray_idx = (fixed_ray_idx(draws.perm, iteration, cfg.rays_per_kf) if cfg.rays_strategy == "FIXED"
-                   else draws.ray_idx)
-        bundle = build_window_rays(poses, window, cube, cfg, ray_idx, draws.sky_idx)
+    def render_shard(params, poses, occ_grid, window, draws: StepDraws, ray_idx, cube_d):
+        bundle = build_window_rays(poses, window, cube_d, cfg, ray_idx, draws.sky_idx)
         if cfg.samples_strategy == "OGM":
-            z_vals = sampling.occ_grid_sampler_z_vals(
-                bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat, draws.u_pdf
-            )
+            z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, cfg.perturb, draws.u_strat,
+                                                      draws.u_pdf)
         else:
-            z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
+            z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, cfg.perturb, draws.u_strat)
         render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=cfg.train_point_chunks,
                              enc_u=draws.u_enc)
+        return render, bundle
+
+    def forward(params, poses, occ_grid, window, draws, iteration, global_step):
+        """(loss, aux, each row's (render, bundle, draws))."""
+        ray_idx = (fixed_ray_idx(draws.perm, iteration, cfg.rays_per_kf) if cfg.rays_strategy == "FIXED"
+                   else draws.ray_idx)
+        w = window.window_size
+        devs = [r[0] for r in rows] if w % len(rows) == 0 else [dev]
+        shards = []
+        for row, (k0, k1, d_window) in zip(rows, split_window(window, devs)):
+            d = row[0]
+            r0, r1 = k0 * per_kf, k1 * per_kf
+            d_draws = StepDraws(
+                ray_idx=None, sky_idx=_slice(draws.sky_idx, k0, k1, d), u_strat=_slice(draws.u_strat, r0, r1, d),
+                u_pdf=_slice(draws.u_pdf, r0, r1, d), u_occ=_slice(draws.u_occ, r0, r1, d),
+                enc_key=draws.enc_key.to(d),
+                u_enc=_slice(_shard_u_enc(draws.u_enc, r0 * n_samples, (r1 - r0) * n_samples, w * per_kf * n_samples),
+                             0, None, d),
+            )
+            render, bundle = render_shard({"sigma": _place(params["sigma"], row)}, poses.to(d), occ_grid.to(d),
+                                          d_window, d_draws, _slice(ray_idx, k0, k1, d), cubes[d])
+            shards.append((render, bundle, d_draws))
+        render = _join([s[0] for s in shards], dev)
+        bundle = _join([s[1] for s in shards], dev)
         loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
-        return loss, aux, render, bundle
+        return loss, aux, shards
+
+    def occ_cotangent(occ_grid, shards):
+        """The occupancy gradient of every row's samples, each row's on its
+        device, summed on the first device in row order."""
+        g_occ = None
+        for render, bundle, draws in shards:
+            g = occ_grid_cotangent(
+                occ_grid.to(render.z_vals.device),
+                render.points.detach(),
+                render.z_vals.detach() * scale,
+                (bundle.depth * scale)[:, None],
+                bundle.valid,
+                u=draws.u_occ,
+                estimator=cfg.occ.estimator,
+            ).to(dev)
+            g_occ = g if g_occ is None else g_occ + g
+        return g_occ
 
     def train_step(state: MapperState, window, flags: TrainStepFlags, pose_mask: torch.Tensor,
                    iteration, draws: Optional[StepDraws] = None):
@@ -402,7 +536,7 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
         params = {"sigma": _tree_unflatten(state.params["sigma"], sigma_leaves), "intensity": state.params["intensity"]}
         poses = state.poses.detach().requires_grad_(pose_grads)
         with torch.enable_grad():
-            loss, aux, render, bundle = forward(
+            loss, aux, shards = forward(
                 params, poses, state.occ_grid, window, draws, iteration, state.global_step.to(torch.float32),
             )
             wrt = sigma_leaves + ([poses] if pose_grads else [])
@@ -413,6 +547,14 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
         g_poses = grads[-1] if pose_grads else torch.zeros_like(state.poses)
         loss = loss.detach()
         finite = torch.isfinite(loss) & _all_finite(grads)
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        aux["loss"] = loss
+        aux["finite"] = finite
+        aux["grads"] = {"sigma": g_sigma, "intensity": g_intensity, "poses": g_poses}
+        not_finite = (~finite).to(torch.int32)
+        if not apply_updates:
+            return state._replace(global_step=state.global_step + 1,
+                                  skipped_steps=state.skipped_steps + not_finite), aux
 
         with torch.no_grad():
             new_sigma, opt_sigma = _masked_group(
@@ -435,21 +577,12 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
 
             occ_grid, opt_occ = state.occ_grid, state.opt_occ
             if flags.do_occ_update:
-                g_occ = occ_grid_cotangent(
-                    state.occ_grid,
-                    render.points.detach(),
-                    render.z_vals.detach() * scale,
-                    (bundle.depth * scale)[:, None],
-                    bundle.valid,
-                    u=draws.u_occ,
-                    estimator=cfg.occ.estimator,
-                )
-                upd, opt_occ_new = adam_updates(g_occ, state.opt_occ, state.occ_grid, cfg.occ.lr)
+                upd, opt_occ_new = adam_updates(occ_cotangent(state.occ_grid, shards), state.opt_occ, state.occ_grid,
+                                                cfg.occ.lr)
                 skip = ~finite
                 occ_grid = torch.where(skip, state.occ_grid, state.occ_grid + upd)
                 opt_occ = _select(skip, state.opt_occ, opt_occ_new)
 
-            not_finite = (~finite).to(torch.int32)
             new_state = MapperState(
                 params={"sigma": new_sigma, "intensity": new_intensity},
                 poses=new_poses,
@@ -461,10 +594,6 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
                 global_step=state.global_step + 1,
                 skipped_steps=state.skipped_steps + not_finite,
             )
-        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
-        aux["loss"] = loss
-        aux["finite"] = finite
-        aux["grads"] = {"sigma": g_sigma, "intensity": g_intensity, "poses": g_poses}
         return new_state, aux
 
     train_step.generator = generator

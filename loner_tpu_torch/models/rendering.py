@@ -146,13 +146,16 @@ def chunk_points(n: int, n_chunks: int) -> int:
     return n if n_chunks <= 1 or n % n_chunks != 0 else n // n_chunks
 
 
-def _chunked(fn, x_t: torch.Tensor, n_chunks: int) -> torch.Tensor:
-    """``fn`` over the last axis of ``x_t`` in ``n_chunks`` sequential chunks
-    when that divides it (else in one), the results concatenated on it."""
+def _chunked(fn, x_t: torch.Tensor, n_chunks: int, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fn(chunk, u)`` over the last axis of ``x_t`` in ``n_chunks``
+    sequential chunks when that divides it (else in one), the results
+    concatenated on it. ``u`` is one block shared by every chunk, or one
+    column per point, chunked with the points."""
     n = x_t.shape[-1]
     if chunk_points(n, n_chunks) == n:
-        return fn(x_t)
-    return torch.cat([fn(c) for c in x_t.chunk(n_chunks, dim=-1)], dim=-1)
+        return fn(x_t, u)
+    us = u.chunk(n_chunks, dim=-1) if u is not None and u.shape[-1] == n else [u] * n_chunks
+    return torch.cat([fn(c, uc) for c, uc in zip(x_t.chunk(n_chunks, dim=-1), us)], dim=-1)
 
 
 def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
@@ -171,7 +174,9 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
     ``key_intensity`` draw the encoders' stochastic table gradients;
     ``enc_u`` and ``enc_u_intensity`` (L, points per chunk) are the "cell"
     encoders' corner uniforms, one block shared by every chunk, as the JAX
-    package draws them from one key per chunk."""
+    package draws them from one key per chunk; ``enc_u`` may also hold one
+    column per point (a data-parallel shard's points, each with the uniform
+    of its place in the whole window)."""
     if render_strategy not in _STRATEGIES:
         raise ValueError(f"Unknown render strategy: {render_strategy}")
     n, s = z_vals.shape
@@ -180,12 +185,13 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
     pts_t = bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z_vals[None]  # (3, N, S)
     flat = pts_t.reshape(3, n * s)
     if sigma_only:
-        raw_t = _chunked(lambda p: query_sigma_t(params, p, cfg, key, enc_u), flat, point_chunks).reshape(1, n, s)
+        raw_t = _chunked(lambda p, u: query_sigma_t(params, p, cfg, key, u), flat, point_chunks,
+                         enc_u).reshape(1, n, s)
     else:
         dirs_t = bundle.viewdirs.T[:, :, None].expand(3, n, s).reshape(3, n * s)
         raw_t = _chunked(
-            lambda x: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity, enc_u,
-                                   enc_u_intensity),
+            lambda x, _: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity, enc_u,
+                                      enc_u_intensity),
             torch.cat([flat, dirs_t]), point_chunks,
         ).reshape(-1, n, s)
     rgb, depth, weights, opacity, variance = _STRATEGIES[render_strategy](

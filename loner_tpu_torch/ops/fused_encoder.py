@@ -24,6 +24,11 @@ features ``(L*F, N)`` f32.
   ops, as the JAX package leaves them to XLA.
 * :func:`fused_hash_encode_t` is the differentiable encode
   (``torch.autograd.Function``).
+* A table may come as :class:`TableSlabs`, contiguous slabs of its cell
+  axis each on its own device (the hash-table tensor parallelism of
+  ``parallel/tp.py``): each slab gathers the rows it owns, zeros elsewhere,
+  the partial ``v_t`` are summed on the points' device, where B4 and B5
+  run, and each slab's gradient scatters only its own rows, on its device.
 
 The strided table gradient: training points arrive as rays x S samples; with
 (rot, phase) drawn per step from the encoder's two key words, sample s of a
@@ -83,6 +88,13 @@ class FusedHashConfig(NamedTuple):
         return ((res.astype(object)) ** 3 <= self.table_size).astype(bool)
 
 
+class TableSlabs(list):
+    """The slabs of one table leaf (..., T, W) along its cell axis, in
+    order, each on its own device: slab m holds rows [m*T/n, (m+1)*T/n).
+    A parameter tree holds it where it held the table; tree maps keep the
+    type."""
+
+
 def init_fused_table(generator: torch.Generator, cfg: FusedHashConfig, device="cuda") -> torch.Tensor:
     """(L, T, 8F) f32 master table, uniform in [-1e-4, 1e-4), feature-major rows."""
     dev = resolve_device(device)
@@ -140,14 +152,44 @@ def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
     return wx * wy * wz
 
 
-def _gather_v_t(tables_bf16: torch.Tensor, pts_t: torch.Tensor, cfg: FusedHashConfig) -> torch.Tensor:
+def _own_rows(idx: torch.Tensor, row0: int, rows: int):
+    """(local row, owned?) of table rows ``idx`` in the slab [row0, row0 + rows)."""
+    local = idx - row0
+    own = (local >= 0) & (local < rows)
+    return torch.where(own, local, 0), own
+
+
+def _gather_v_t(tables_bf16: torch.Tensor, pts_t: torch.Tensor, cfg: FusedHashConfig, row0: int = 0) -> torch.Tensor:
     """The corner rows of every (level, point): v_t (L, 8F, N) bf16, gathered
     along the cell axis of the transposed table (L, 8F, T) so that each
-    level's rows land in v_t's layout with no transposing copy of v_t."""
+    level's rows land in v_t's layout with no transposing copy of v_t. A
+    slab of the table's rows [row0, row0 + its rows) gives zeros for the
+    rows it does not own."""
+    rows = tables_bf16.shape[1]
     tables_t = tables_bf16.transpose(1, 2).contiguous()
     v_t = torch.empty((cfg.n_levels, cfg.row_width, pts_t.shape[-1]), dtype=tables_bf16.dtype, device=pts_t.device)
     for lvl in range(cfg.n_levels):
-        torch.index_select(tables_t[lvl], 1, _level_indices(pts_t, cfg, lvl), out=v_t[lvl])
+        idx = _level_indices(pts_t, cfg, lvl)
+        if rows == cfg.table_size:
+            torch.index_select(tables_t[lvl], 1, idx, out=v_t[lvl])
+        else:
+            local, own = _own_rows(idx, row0, rows)
+            torch.index_select(tables_t[lvl], 1, local, out=v_t[lvl])
+            v_t[lvl].mul_(own)
+    return v_t
+
+
+def _gather_slabs(slabs, pts_t: torch.Tensor, cfg: FusedHashConfig) -> torch.Tensor:
+    """v_t on the points' device from the table's slabs: each slab gathers
+    on its own device, and the partial v_t (one nonzero per entry) are
+    summed in slab order."""
+    if len(slabs) == 1:
+        return _gather_v_t(slabs[0].to(torch.bfloat16), pts_t, cfg)
+    v_t, row0 = None, 0
+    for slab in slabs:
+        part = _gather_v_t(slab.to(torch.bfloat16), pts_t.to(slab.device), cfg, row0).to(pts_t.device)
+        v_t = part if v_t is None else v_t + part
+        row0 += slab.shape[1]
     return v_t
 
 
@@ -195,20 +237,36 @@ def _row_updates(pts_t: torch.Tensor, gl: torch.Tensor, scale: float) -> torch.T
     return (gl.T[:, :, None] * w.T[:, None, :]).reshape(w.shape[1], -1)
 
 
-def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig) -> torch.Tensor:
-    """(L, T, 8F) f32: every (point, level) adds its row update."""
+def _scatter_rows(d: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor, row0: int, table_size: int) -> None:
+    """d += upd at table rows ``idx``, where ``d`` (rows, 8F) holds the rows
+    [row0, row0 + rows) of a table of ``table_size``; the rows it does not
+    hold add nothing."""
+    rows = d.shape[0]
+    if rows != table_size:
+        idx, own = _own_rows(idx, row0, rows)
+        upd = upd * own[:, None]
+    d.index_add_(0, idx, upd)
+
+
+def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig, row0: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """(L, T, 8F) f32: every (point, level) adds its row update. With
+    ``rows``, the gradient of the slab [row0, row0 + rows) alone."""
     nf = cfg.n_features
-    d = torch.zeros((cfg.n_levels, cfg.table_size, cfg.row_width), dtype=torch.float32, device=pts_t.device)
+    rows = cfg.table_size if rows is None else rows
+    d = torch.zeros((cfg.n_levels, rows, cfg.row_width), dtype=torch.float32, device=pts_t.device)
     for lvl, scale in enumerate(cfg.level_scales()):
         upd = _row_updates(pts_t, g[nf * lvl : nf * lvl + nf], scale)
-        d[lvl].index_add_(0, _level_indices(pts_t, cfg, lvl), upd)
+        _scatter_rows(d[lvl], _level_indices(pts_t, cfg, lvl), upd, row0, cfg.table_size)
     return d
 
 
-def _bwd_dtable_strided(pts_t: torch.Tensor, g: torch.Tensor, key_data: torch.Tensor, cfg: FusedHashConfig) -> torch.Tensor:
+def _bwd_dtable_strided(pts_t: torch.Tensor, g: torch.Tensor, key_data: torch.Tensor, cfg: FusedHashConfig,
+                        row0: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """(L, T, 8F) f32 slot-strided table gradient. pts_t (3, N) with N =
     n_rays * S and each ray's S samples contiguous. (rot, phase) stay on the
-    device: no host sync."""
+    device: no host sync. With ``rows``, the gradient of the slab [row0,
+    row0 + rows) alone."""
     l, k, s_per, nf = cfg.n_levels, cfg.bwd_stride, cfg.slot_period, cfg.n_features
     n_rays = pts_t.shape[-1] // s_per
     group = l * k
@@ -217,13 +275,14 @@ def _bwd_dtable_strided(pts_t: torch.Tensor, g: torch.Tensor, key_data: torch.Te
     # (C, n_rays, S/group, k, L): last axis = s % L, k axis = (s // L) % k
     pts_ph = pts_t.reshape(3, n_rays, s_per // group, k, l).index_select(3, phase)
     g_ph = g.reshape(nf * l, n_rays, s_per // group, k, l).index_select(3, phase)
-    d = torch.zeros((l, cfg.table_size, cfg.row_width), dtype=torch.float32, device=pts_t.device)
+    rows = cfg.table_size if rows is None else rows
+    d = torch.zeros((l, rows, cfg.row_width), dtype=torch.float32, device=pts_t.device)
     for lvl, scale in enumerate(cfg.level_scales()):
         cls = ((lvl + rot) % l).reshape(1)  # the slot class feeding this level
         p_l = pts_ph.index_select(4, cls).reshape(3, -1)
         gl = g_ph[nf * lvl : nf * lvl + nf].index_select(4, cls).reshape(nf, -1)
         upd = _row_updates(p_l, gl, scale) * float(l * k)
-        d[lvl].index_add_(0, _level_indices(p_l, cfg, lvl), upd)
+        _scatter_rows(d[lvl], _level_indices(p_l, cfg, lvl), upd, row0, cfg.table_size)
     return d
 
 
@@ -303,31 +362,40 @@ interp_dpts.launches = 0
 
 
 class _FusedEncode(torch.autograd.Function):
+    """Inputs (pts_t, key_data, cfg, *slabs): the table whole, or its
+    :class:`TableSlabs`."""
+
     @staticmethod
-    def forward(ctx, table, pts_t, key_data, cfg):
+    def forward(ctx, pts_t, key_data, cfg, *slabs):
         pts_t = pts_t.contiguous()
-        v_t = _gather_v_t(table.to(torch.bfloat16), pts_t, cfg)
+        v_t = _gather_slabs(slabs, pts_t, cfg)
         out = interp_fwd(pts_t, v_t, cfg)
         ctx.cfg = cfg
-        # without the residual, the table is kept to gather v_t again
-        ctx.save_for_backward(pts_t, key_data, v_t if cfg.save_residual else table)
+        ctx.slab_rows = [(s.device, s.shape[1]) for s in slabs]
+        # without the residual, the slabs are kept to gather v_t again
+        ctx.save_for_backward(pts_t, key_data, *((v_t,) if cfg.save_residual else slabs))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        pts_t, key_data, saved = ctx.saved_tensors
+        pts_t, key_data, *saved = ctx.saved_tensors
         cfg = ctx.cfg
         g = g.contiguous()
-        d_table = d_pts = None
-        if ctx.needs_input_grad[1]:  # a pose-frozen step needs no point gradient
-            v_t = saved if cfg.save_residual else _gather_v_t(saved.to(torch.bfloat16), pts_t, cfg)
+        d_pts = None
+        if ctx.needs_input_grad[0]:  # a pose-frozen step needs no point gradient
+            v_t = saved[0] if cfg.save_residual else _gather_slabs(saved, pts_t, cfg)
             d_pts = interp_dpts(pts_t, v_t, g, cfg)
-        if ctx.needs_input_grad[0]:
-            if _strided_ok(cfg, pts_t.shape[-1]):
-                d_table = _bwd_dtable_strided(pts_t, g, key_data, cfg)
-            else:
-                d_table = _bwd_dtable_exact(pts_t, g, cfg)
-        return d_table, d_pts, None, None
+        strided = _strided_ok(cfg, pts_t.shape[-1])
+        d_slabs, row0 = [], 0
+        for m, (dev, rows) in enumerate(ctx.slab_rows):
+            d = None
+            if ctx.needs_input_grad[3 + m]:  # each slab's rows, on its own device
+                p, gd = pts_t.to(dev), g.to(dev)
+                d = (_bwd_dtable_strided(p, gd, key_data.to(dev), cfg, row0, rows) if strided
+                     else _bwd_dtable_exact(p, gd, cfg, row0, rows))
+            d_slabs.append(d)
+            row0 += rows
+        return (d_pts, None, None, *d_slabs)
 
 
 def _mul_u32(a: torch.Tensor, p: int) -> torch.Tensor:
@@ -353,8 +421,10 @@ def fused_hash_encode_t(
     key: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(L*F, N) encoding of pts_t (3, N) in [0, 1], differentiable in the
-    table and the points. ``key`` holds the two words (int64 in [0, 2^32))
-    that draw the strided backward's rotation and phase; pass fresh words
-    each step. Without it they come from the points' mantissa bits."""
+    table (a tensor or its :class:`TableSlabs`) and the points. ``key``
+    holds the two words (int64 in [0, 2^32)) that draw the strided
+    backward's rotation and phase; pass fresh words each step. Without it
+    they come from the points' mantissa bits."""
     key_data = key_data_from_points(pts_t) if key is None else key.to(device=pts_t.device, dtype=torch.int64)
-    return _FusedEncode.apply(table, pts_t, key_data, cfg)
+    slabs = tuple(table) if isinstance(table, TableSlabs) else (table,)
+    return _FusedEncode.apply(pts_t, key_data, cfg, *slabs)

@@ -1,10 +1,11 @@
 """Pose-graph refinement over keyframes by Gauss-Newton.
 
-The port of ``loner_tpu/parallel/pose_graph.py`` on one device: odometry
+The port of ``loner_tpu/parallel/pose_graph.py``: odometry
 between-factors, loop-closure factors and unary priors on se(3) 6-vectors,
 a dense normal system (6K, 6K) and ``n_iters`` Gauss-Newton steps with an
-anchor prior on one pose. The JAX package can shard the factors over a
-device mesh (``mesh``); that form is queue A item 3 and raises here.
+anchor prior on one pose. With a mesh (``parallel/sharding.py``) the
+factors split over its devices, each assembles its partial system, and the
+partials are summed on the first device, where the solve runs.
 
 Residuals are the smooth first-order se(3) error of the JAX package
 (translation and the antisymmetric part of the rotation), differentiable at
@@ -136,8 +137,9 @@ def _prior_system(pi, z, w):
     return w[:, None, None] * (Jt @ J), w[:, None] * (Jt @ r[..., None])[..., 0], w * torch.sum(r * r, dim=-1)
 
 
-def _assemble(poses6: torch.Tensor, factors: PoseGraphFactors, k: int, priors: Optional[PosePriors] = None):
-    """Dense normal system: H (K, K, 6, 6), b (K, 6) and the total cost."""
+def _assemble(poses6: torch.Tensor, factors: PoseGraphFactors, k: int):
+    """Dense normal system of the factors: H (K, K, 6, 6), b (K, 6) and the
+    total cost."""
     pi, pj = poses6[factors.i], poses6[factors.j]
     Hii, Hjj, Hij, bi, bj, cost = _factor_system(pi, pj, factors.z, factors.weight)
     H = torch.zeros((k, k, 6, 6), dtype=poses6.dtype, device=poses6.device)
@@ -149,7 +151,16 @@ def _assemble(poses6: torch.Tensor, factors: PoseGraphFactors, k: int, priors: O
     H.index_put_((factors.j, factors.i), Hij.transpose(-1, -2), accumulate=True)
     b.index_add_(0, factors.i, bi)
     b.index_add_(0, factors.j, bj)
-    total = torch.sum(cost)
+    return H, b, torch.sum(cost)
+
+
+def _assemble_on_mesh(poses6: torch.Tensor, shards, k: int, priors: Optional[PosePriors]):
+    """The normal system from factor shards, each assembled on its own
+    device and summed on ``poses6``'s in mesh order; the priors once, there."""
+    H = b = total = None
+    for f in shards:
+        parts = [t.to(poses6.device) for t in _assemble(poses6.to(f.i.device), f, k)]
+        H, b, total = parts if H is None else (H + parts[0], b + parts[1], total + parts[2])
     if priors is not None:
         Hp, bp, cp = _prior_system(poses6[priors.i], priors.z, priors.weight)
         H.index_put_((priors.i, priors.i), Hp, accumulate=True)
@@ -164,19 +175,27 @@ def solve_pose_graph(poses6: torch.Tensor, factors: PoseGraphFactors, n_iters: i
                      priors: Optional[PosePriors] = None):
     """Gauss-Newton pose-graph optimization on ``poses6``'s device (the
     factors and priors are moved there). Returns (refined (K, 6), the cost
-    at the last linearisation point, a scalar tensor)."""
-    if mesh is not None:
-        raise NotImplementedError("solve_pose_graph(mesh=...): factors sharded over several cards are not "
-                                  "ported (ROADMAP.md, queue A item 3)")
+    at the last linearisation point, a scalar tensor). With ``mesh`` (a
+    ``parallel.sharding.Mesh``), the factors split into contiguous blocks
+    over the devices along ``axis`` (their count must divide the factors'),
+    each device assembles its block's partial system, the partials are
+    summed on the mesh's first device, where the priors are assembled and
+    the solve runs, and the result lies there."""
+    devs = [poses6.device] if mesh is None else mesh.along(axis)  # no mesh: the one-device case
+    f = factors.i.shape[0]
+    if f % len(devs):
+        raise ValueError(f"{f} factors do not split over the {len(devs)} devices of axis {axis!r}")
+    per = f // len(devs)
+    shards = [PoseGraphFactors(*(t[m * per:(m + 1) * per] for t in factors)).to(d) for m, d in enumerate(devs)]
+    poses6 = poses6.to(devs[0])
     dev = poses6.device
-    factors = factors.to(dev)
     priors = None if priors is None else priors.to(dev)
     k = poses6.shape[0]
     eye6 = torch.eye(6, dtype=poses6.dtype, device=dev)
     eye = torch.eye(6 * k, dtype=poses6.dtype, device=dev)
     poses, cost = poses6, torch.zeros((), dtype=poses6.dtype, device=dev)
     for _ in range(n_iters):
-        H, b, cost = _assemble(poses, factors, k, priors)
+        H, b, cost = _assemble_on_mesh(poses, shards, k, priors)
         H[anchor_index, anchor_index] += anchor_weight * eye6  # the anchor pins the gauge
         Hd = H.permute(0, 2, 1, 3).reshape(6 * k, 6 * k) + damping * eye
         delta = torch.linalg.solve(Hd, -b.reshape(6 * k)).reshape(k, 6)

@@ -5,8 +5,10 @@ writes the output directory's contract, either inline (``single_threaded``,
 the deterministic mode) or with the mapper on a worker thread fed through a
 queue, the tracker held back when it runs more than ``max_time_delta``
 seconds ahead of the last mapped frame. The tracker and the mapper run on
-one device; the worker thread enters that device, since torch's current
-device is per thread.
+one device, unless ``concurrent_device_split`` (or the tracker's
+``device_index`` and the mapper's ``mesh_device_indices``) puts them on
+disjoint cards; the worker thread enters the mapper's device, since
+torch's current device is per thread.
 
 In camera mode (``mapper.camera.enabled``) ``process_image`` takes camera
 images: each is matched to the scan whose padded time interval holds it
@@ -15,9 +17,6 @@ through the same queue as the scans, so a match reaches the mapper after
 its scan. With ``loop_closure.enabled``, ``stop`` refines the keyframe
 poses by a pose graph with ICP loop closures (``mapping/loop_closure.py``)
 before it writes the outputs, and writes ``ba_info.json``.
-
-Not ported, and raising ``NotImplementedError``: the tracker and mapper on
-disjoint cards (queue A item 3).
 """
 from __future__ import annotations
 
@@ -27,8 +26,9 @@ import os
 import queue
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,18 +54,39 @@ class SlamConfig:
     max_time_delta: float = 3.0
     use_groundtruth_poses: bool = False
     loop_closure: LoopClosureConfig = field(default_factory=LoopClosureConfig)
-    concurrent_device_split: bool = False  # queue A item 3
+    # tracker and mapper as two concurrent programs on disjoint cards: the
+    # tracker on card 0, the mapper data-parallel over the next ones
+    concurrent_device_split: bool = False
+
+
+def device_split(n_devices: int, window_size: int) -> Optional[List[int]]:
+    """The mapper's device indices under ``concurrent_device_split`` with
+    ``n_devices`` cards: None below two (nothing changes); else 1 .. m, m
+    the largest divisor of ``window_size`` within the n - 1 cards beside
+    the tracker's (a step's keyframe blocks must divide the window), with a
+    warning when that leaves cards idle at m = 1."""
+    if n_devices < 2:
+        return None
+    m = max(d for d in range(1, n_devices) if window_size % d == 0)
+    if m == 1 and n_devices > 2:
+        warnings.warn(f"concurrent_device_split: window_size={window_size} has no divisor <= {n_devices - 1}; "
+                      f"mapper runs on 1 device while {n_devices - 2} idle. Pick a window_size with a divisor "
+                      f"<= {n_devices - 1}.")
+    return list(range(1, 1 + m))
 
 
 class LonerSLAM:
     def __init__(self, cfg: SlamConfig, cube: WorldCube, out_dir: Optional[str] = None, device="cuda"):
-        if cfg.concurrent_device_split:
-            raise NotImplementedError("concurrent_device_split: tracker and mapper on disjoint cards is not "
-                                      "ported (ROADMAP.md, queue A item 3)")
         self.cfg = cfg
         self.cube = cube
         self.out_dir = out_dir
         self.device = resolve_device(device)
+        if cfg.concurrent_device_split:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            mapper_devices = device_split(n, cfg.mapper.mapper.window_size)
+            if mapper_devices is not None:
+                cfg.tracker.device_index = 0
+                cfg.mapper.mesh_device_indices = mapper_devices
         if out_dir and cfg.mapper.checkpoint_dir is None:
             cfg.mapper.checkpoint_dir = os.path.join(out_dir, "checkpoints")
         if out_dir and cfg.mapper.loss_log_dir is None:
@@ -93,7 +114,8 @@ class LonerSLAM:
 
     # ------------------------------------------------------------------
     def _mapper_loop(self):
-        on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+        dev = self.mapper.device
+        on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with on_card:
             while not self._stop.is_set() or not self._queue.empty():
                 try:

@@ -5,7 +5,8 @@ first ``scan_duration`` fraction of each sweep (host numpy, as in the JAX
 package), registered against the previous frame's cloud by the coarse-to-fine
 point-to-plane ICP from the identity; the first frame anchors the origin;
 the scan is motion-compensated with the interpolated pose. ICP and motion
-compensation run on the tracker's device. With the debug block's
+compensation run on the tracker's device (``device_index`` picks one of
+several cards). With the debug block's
 ``draw_icp_clouds`` on, each registration writes its clouds (input,
 aligned, target) under ``<dump_dir>/frame_<n>/``.
 """
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.data.scan import LidarScan
-from loner_tpu_torch.device import resolve_device
+from loner_tpu_torch.device import indexed_device, resolve_device
 from loner_tpu_torch.geometry.motion import motion_compensate
 from loner_tpu_torch.tracking.icp import IcpConfig, make_icp
 from loner_tpu_torch.tracking.sky import extract_sky_directions
@@ -37,7 +38,8 @@ class TrackerConfig:
     sky_segmentation: bool = False
     sky_max_rays: int = 1024
     sky_min_elevation_deg: float = 5.0
-    # pins the tracker to one device of several (ROADMAP queue A item 3)
+    # pins the tracker (ICP, motion compensation) to device <index> of the
+    # tracker's device type; None: the device the tracker is given
     device_index: Optional[int] = None
     # the debug block's flags (runtime/debug_dump.DebugFlags): draw_icp_clouds
     # dumps each registration's clouds
@@ -56,12 +58,10 @@ class TrackResult:
 
 class Tracker:
     def __init__(self, cfg: TrackerConfig = TrackerConfig(), device="cuda"):
-        if cfg.device_index is not None:
-            raise NotImplementedError(
-                "TrackerConfig.device_index: pinning the tracker to one of several cards is not ported "
-                "(ROADMAP.md, queue A item 3)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.device_index is not None:  # cuda:<i> on the card; the CPU stays the CPU
+            self.device = indexed_device(self.device, cfg.device_index)
         self._icp = make_icp(cfg.icp, self.device)
         self._prev_cloud: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._prev_pose: Optional[np.ndarray] = None

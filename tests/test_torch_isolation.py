@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of loner_tpu_torch imports JAX or
-the JAX package, its entry points and public constructors default to the
-card and raise without one (no CPU fallback), the encoders and SLAM
-options not yet ported say so while the ported ones run, and every C entry
-the kernel loader binds is defined in the CUDA sources."""
+the JAX package, its entry points and public constructors (the mesh's too)
+default to the card and raise without one (no CPU fallback), the encoders
+and SLAM options once refused (the alternate encoders, the device split
+and the mesh forms) run, and every C entry the kernel loader binds is
+defined in the CUDA sources."""
 import ast
 import importlib
 import os
@@ -64,7 +65,8 @@ def test_every_module_imports_without_jax():
     assert len(MODULES) >= 20
     assert {"loner_tpu_torch.models.hash_encoding", "loner_tpu_torch.ops.hash_encode_fast",
             "loner_tpu_torch.ops.cell_hash", "loner_tpu_torch.data.rosbag_convert",
-            "loner_tpu_torch.runtime.native"} <= set(MODULES)
+            "loner_tpu_torch.runtime.native", "loner_tpu_torch.parallel.sharding", "loner_tpu_torch.parallel.tp",
+            "loner_tpu_torch.parallel.submaps_parallel", "loner_tpu_torch.multichip"} <= set(MODULES)
 
 
 def test_sources_never_name_jax_or_the_jax_package():
@@ -117,6 +119,18 @@ def test_entry_points_default_to_the_card():
                  lambda: run_slam.run_trial(None, None, "unused", False)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # the mesh's entry points
+    from loner_tpu_torch import multichip
+    from loner_tpu_torch.parallel import sharding, submaps_parallel, tp
+
+    for make in (lambda: sharding.make_mesh(), lambda: sharding.make_mesh(2), lambda: tp.make_dp_tp_mesh(),
+                 lambda: sharding.Mesh(["cuda:0"] * 2, ("data",)), lambda: multichip.main([]),
+                 lambda: multichip.main(["4", "--device", "cuda:0"]),
+                 lambda: submaps_parallel.make_submap_parallel_step(cfg, cube),
+                 lambda: submaps_parallel.init_stacked_states(None, cfg, 2),
+                 lambda: submaps_parallel.optimize_submaps_parallel(cfg, cube, [], [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     # the public constructors too
     gen = torch.Generator()
     small = tnerf.NeRFConfig(triad=ttriad.TriadConfig(cp_resolutions=(4,), cp_features=2, hash_levels=1, hash_features=2))
@@ -156,20 +170,18 @@ def _slam(**changes):
     return LonerSLAM(cfg, cube, device="cpu")
 
 
-# option -> (changes to a small CPU LonerSLAM's config, the message's marker)
-UNPORTED_SLAM = {
-    "device_split": ({"concurrent_device_split": True}, "item 3"),
-    "mapper_mesh": ({"mapper.mesh_device_indices": [1, 2]}, "item 3"),
-    "tracker_device_index": ({"tracker.device_index": 0}, "item 3"),
-}
 # the online camera phase: a 4 x 6 intrinsics of 2 steps of 32 rays a window
 CAMERA = tmapper.OnlineCameraConfig(enabled=True, K=np.array([[3.0, 0, 3], [0, 3, 2], [0, 0, 1]]),
                                     iterations_per_window=2, n_rays=32)
 # options that raised until the offline slice (rays, samples), the loop
-# closure and camera slice (camera, loop_closure) and the map tools and
-# debug dumps slice (debug_*) ported them: each now builds and maps one
-# keyframe
+# closure and camera slice (camera, loop_closure), the map tools and debug
+# dumps slice (debug_*) and the multi-device slice (device_split,
+# mapper_mesh, tracker_device_index) ported them: each now builds and maps
+# one keyframe
 PORTED_SLAM = {
+    "device_split": {"concurrent_device_split": True},
+    "mapper_mesh": {"mapper.mesh_device_indices": [1, 2]},
+    "tracker_device_index": {"tracker.device_index": 0},
     "rays_mask": {"mapper.mapper.rays_strategy": "MASK"},
     "rays_fixed": {"mapper.mapper.rays_strategy": "FIXED"},
     "samples_uniform": {"mapper.mapper.samples_strategy": "UNIFORM"},
@@ -195,7 +207,10 @@ def test_ported_options_run(option, tmp_path):
     ``global_step`` but not in the mapper's lidar steps; with loop closure
     on, ``stop`` runs (one keyframe: nothing to refine). With a debug flag
     on, its dump lands under the dump directory: the probe's ray clouds of
-    the first window, or the ICP clouds of the first registration."""
+    the first window, or the ICP clouds of the first registration. The
+    device indices resolve to the CPU, where they were asked for: the
+    mapper's mesh holds the CPU twice, the tracker runs on it, and the
+    device split, with one device, changes nothing."""
     changes = dict(PORTED_SLAM[option])
     if option.startswith("debug"):
         changes["mapper.debug"] = DebugFlags(**{**vars(changes["mapper.debug"]), "dump_dir": str(tmp_path)})
@@ -217,6 +232,14 @@ def test_ported_options_run(option, tmp_path):
     if option == "loop_closure":
         slam.stop()
         assert slam.ba_info is None
+    cpu = torch.device("cpu")
+    assert slam.tracker.device == slam.mapper.device == cpu
+    if option == "mapper_mesh":
+        assert slam.mapper.mesh.devices.tolist() == [cpu, cpu]
+    else:
+        assert slam.mapper.mesh is None
+    if option == "device_split":
+        assert slam.cfg.tracker.device_index is None and slam.cfg.mapper.mesh_device_indices is None
     if option == "debug_rays":
         assert (tmp_path / "keyframe_1" / "ray_endpoints.pcd").exists()
     if option == "debug_icp_clouds":
@@ -244,13 +267,8 @@ def test_process_image_runs():
     np.testing.assert_array_equal(kf.image, img)
 
 
-@pytest.mark.parametrize("impl", ["cell", "packed", "exact", *UNPORTED_SLAM])
+@pytest.mark.parametrize("impl", ["cell", "packed", "exact"])
 def test_unported_paths_raise(impl):
-    if impl in UNPORTED_SLAM:
-        changes, marker = UNPORTED_SLAM[impl]
-        with pytest.raises(NotImplementedError, match=marker):
-            _slam(**changes)
-        return
     # the alternate encoders (queue A item 2) raised until they were ported:
     # now init_nerf builds the JAX package's table shapes and the sigma
     # query runs

@@ -76,14 +76,19 @@ def test_solve_pose_graph_matches_jax(name):
 
 
 def test_padded_factors_and_the_mesh():
-    """Padding (weight 0, indices 0) changes nothing; the sharded solve is
-    queue A item 3 and raises."""
+    """Padding (weight 0, indices 0) changes nothing; the sharded solve (the
+    24 padded factors over a mesh of the CPU four times) gives the single
+    solve within 1e-4, as tests/test_pose_graph.py:81 holds JAX's."""
+    from loner_tpu_torch.parallel.sharding import make_mesh
+
     p0, edges, _, _ = _graph("loop")
     a, _ = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges), n_iters=5)
-    b, _ = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges, n_pad=24), n_iters=5)
+    b, cost_b = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges, n_pad=24), n_iters=5)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges), mesh=object())
+    c, cost_c = tpg.solve_pose_graph(torch.as_tensor(p0), tpg.make_factors(edges, n_pad=24), n_iters=5,
+                                     mesh=make_mesh(4, device="cpu"))
+    np.testing.assert_allclose(c.numpy(), b.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(cost_c), float(cost_b), rtol=1e-5)
 
 
 @functools.lru_cache(maxsize=None)

@@ -193,13 +193,15 @@ def test_frame_decimation_and_matching_are_equal():
 
 
 def test_tracker_defaults_to_the_card_and_refuses_unported_options():
-    """No card: the default device raises. ``device_index`` is queue A item
-    3 and raises; the ICP cloud dumps, ported since, build."""
+    """No card: the default device raises. ``device_index`` and the ICP
+    cloud dumps, ported since, build: the index picks a card on the card and
+    leaves the CPU the CPU."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Tracker(TrackerConfig())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Tracker(TrackerConfig(device_index=1), device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Tracker(TrackerConfig(device_index=0))
+    assert Tracker(TrackerConfig(device_index=1), device="cpu").device == torch.device("cpu")
     from loner_tpu_torch.runtime.debug_dump import DebugFlags
 
     Tracker(TrackerConfig(debug=DebugFlags(global_enabled=True, draw_icp_clouds=True)), device="cpu")

@@ -15,9 +15,6 @@ import pytest
 import torch
 
 from loner_tpu.mapping import optimizer as jopt
-from loner_tpu.models import losses as jlosses
-from loner_tpu.models import rendering as jrender
-from loner_tpu.models import sampling as jsampling
 from loner_tpu_torch.convert import state_from_jax
 from loner_tpu_torch.flagship import flagship
 from loner_tpu_torch.mapping import optimizer as topt
@@ -48,26 +45,7 @@ def _setup(dtype, hash_term="off"):
     return jcfg, jcube, jstate, jwindow, tcfg, tcube, twindow
 
 
-def _jax_loss_and_grads(cfg, cube, state, window, key, pose_grads):
-    """The loss and gradients of ``make_train_step_body``'s forward (which
-    the JAX step does not return), by the same calls with the same keys."""
-    k_rays, k_samp, k_enc = jax.random.split(key, 3)
-
-    def fwd(params, poses):
-        bundle = jopt.build_window_rays(poses, window, cube, cfg, k_rays, 0)
-        z = jsampling.occ_grid_sampler_z_vals(k_samp, bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb)
-        render = jrender.render_rays(params, bundle, z, cfg.nerf, sigma_only=True, key=k_enc, point_chunks=1)
-        loss, _ = jlosses.compute_lidar_loss(
-            render, bundle, cfg.world_scale, cfg.loss, state.global_step.astype(jnp.float32), jnp.float32(0.0)
-        )
-        return loss
-
-    if pose_grads:
-        loss, (g_params, g_poses) = jax.value_and_grad(fwd, argnums=(0, 1))(state.params, state.poses)
-    else:
-        loss, g_params = jax.value_and_grad(fwd)(state.params, jax.lax.stop_gradient(state.poses))
-        g_poses = jnp.zeros_like(state.poses)
-    return float(loss), tp.np_tree(g_params), np.asarray(g_poses)
+_jax_loss_and_grads = tp.jax_loss_and_grads
 
 
 CASES = {

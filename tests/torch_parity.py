@@ -55,6 +55,11 @@ HASH = {
     "triad_hash": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=12), nerf={}),
     **{impl: dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
                   nerf=dict(encoding_impl=impl, **kw)) for impl, kw in _ENCODER_NERF.items()},
+    # tables of 2^13 (triad) and 2^12 (fused) cells: over the 4096 cells
+    # from which hash-table TP splits a table
+    "triad_hash_tp": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=15), nerf={}),
+    "fused_tp": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=14, base_resolution=4),
+                     nerf=dict(encoding_impl="fused")),
 }
 
 
@@ -69,15 +74,17 @@ def nerf_kwargs(hash_term: str, enc_cls, triad_cls, compute_dtype: str = "float3
     return kw
 
 
-def mapper_configs(world_scale: float, compute_dtype: str = "float32", hash_term: str = "off"):
-    """(jax MapperConfig, torch MapperConfig) of the same small mapper."""
+def mapper_configs(world_scale: float, compute_dtype: str = "float32", hash_term: str = "off", **changes):
+    """(jax MapperConfig, torch MapperConfig) of the same small mapper;
+    ``changes`` replace MapperConfig fields (window_size=8, ...)."""
+    sizes = {**MAPPER, **changes}
     j = jopt.MapperConfig(
         nerf=JNeRFConfig(**nerf_kwargs(hash_term, JHashEncodingConfig, JTriadConfig, compute_dtype)),
         loss=JLossConfig(),
         occ=JOccGridConfig(voxel_size=OCC_V),
         ray_range=RAY_RANGE,
         world_scale=world_scale,
-        **MAPPER,
+        **sizes,
     )
     t = topt.MapperConfig(
         nerf=TNeRFConfig(**nerf_kwargs(hash_term, THashEncodingConfig, TTriadConfig, compute_dtype)),
@@ -85,18 +92,20 @@ def mapper_configs(world_scale: float, compute_dtype: str = "float32", hash_term
         occ=TOccGridConfig(voxel_size=OCC_V),
         ray_range=RAY_RANGE,
         world_scale=world_scale,
-        **MAPPER,
+        **sizes,
     )
     return j, t
 
 
-def jax_flagship_tiny(compute_dtype: str = "float32", seed: int = 0, hash_term: str = "off"):
+def jax_flagship_tiny(compute_dtype: str = "float32", seed: int = 0, hash_term: str = "off",
+                      n_keyframes: int = SCAN["n_keyframes"], **changes):
     """The JAX side of ``loner_tpu_torch.flagship.flagship`` at the small
-    sizes above: ``__graft_entry__._flagship`` with its sizes cut."""
+    sizes above: ``__graft_entry__._flagship`` with its sizes cut, over
+    ``n_keyframes`` keyframes (``changes`` as in :func:`mapper_configs`)."""
     scene = jsyn.Scene.default()
-    poses, ts = jsyn.circular_trajectory(n_poses=SCAN["n_keyframes"], radius=6.0, z=1.5)
+    poses, ts = jsyn.circular_trajectory(n_poses=n_keyframes, radius=6.0, z=1.5)
     cube = j_compute_world_cube(poses, ray_range=RAY_RANGE, rebase_to_first_pose=False)
-    cfg, _ = mapper_configs(float(cube.scale_factor), compute_dtype, hash_term)
+    cfg, _ = mapper_configs(float(cube.scale_factor), compute_dtype, hash_term, **changes)
     kfs = []
     for i, (T, t0) in enumerate(zip(poses, ts)):
         dirs, dists, stamps, hit = jsyn.simulate_scan(
@@ -165,6 +174,32 @@ def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
             k_enc, (cfg.nerf.pos_encoding_sigma.n_levels, n * cfg.n_samples_train // cfg.train_point_chunks)))
         if cfg.nerf.encoding_impl == "cell" else None,
     )
+
+
+def jax_loss_and_grads(cfg, cube, state, window, key, pose_grads):
+    """The loss and gradients of ``make_train_step_body``'s forward (which
+    the JAX step does not return), by the same calls with the same keys."""
+    from loner_tpu.models import losses as jlosses
+    from loner_tpu.models import rendering as jrender
+    from loner_tpu.models import sampling as jsampling
+
+    k_rays, k_samp, k_enc = jax.random.split(key, 3)
+
+    def fwd(params, poses):
+        bundle = jopt.build_window_rays(poses, window, cube, cfg, k_rays, 0)
+        z = jsampling.occ_grid_sampler_z_vals(k_samp, bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb)
+        render = jrender.render_rays(params, bundle, z, cfg.nerf, sigma_only=True, key=k_enc, point_chunks=1)
+        loss, _ = jlosses.compute_lidar_loss(
+            render, bundle, cfg.world_scale, cfg.loss, state.global_step.astype(jnp.float32), jnp.float32(0.0)
+        )
+        return loss
+
+    if pose_grads:
+        loss, (g_params, g_poses) = jax.value_and_grad(fwd, argnums=(0, 1))(state.params, state.poses)
+    else:
+        loss, g_params = jax.value_and_grad(fwd)(state.params, jax.lax.stop_gradient(state.poses))
+        g_poses = jnp.zeros_like(state.poses)
+    return float(loss), np_tree(g_params), np.asarray(g_poses)
 
 
 def torch_draws(draws: dict, device="cpu") -> topt.StepDraws:
