@@ -130,7 +130,8 @@ In order:
       in turn and the numbers are the layer's overhead): the flagship
       hash-off DP step over 1, 2, 4 and 8 shards (wall ms, device busy ms,
       peak memory; B1-B3 n times a step), DP x TP on the hash-on triad at
-      (2, 2) and (4, 2), EP over 4 submaps of 3d's forest, 3e's pose graph
+      (2, 2) and (4, 2) and on the "exact", "packed" and "cell" flagships of
+      3h at (2, 2), EP over 4 submaps of 3d's forest, 3e's pose graph
       over 8 devices, the camera step under a 2-device mesh, LonerSLAM
       with the tracker on device 0 and the mapper over [0, 0] (ATE under
       0.3 m) and ``dryrun_multichip(8)``, each part with every launch count
@@ -2144,7 +2145,14 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     step (B1-B4 once a step per data row, B5 per data row with pose
     gradients; the 2^16-cell table in 2 slabs; wall ms of 4 warm steps and
     peak memory, device busy ms of the joint step, each beside the single
-    hash-on step's); EP over 4 submaps of 10 of 3d's forest
+    hash-on step's); 3h's flagships of the "exact", "packed" and "cell"
+    encoders (16 levels x 2 features, 2^18-entry tables; cell's default
+    level1 gradient) under DP x TP (2, 2), a joint and a pose-frozen step
+    each (B3 once a step per data row, the other kernels never; cell's
+    (16, 65536, 16) table in two (16, 32768, 16) slabs, the exact and
+    packed (16, 2, 2^18) masters whole on cuda:0; wall ms of 2 warm steps
+    and peak memory, device busy ms of one joint step, each beside the
+    single step's); EP over 4 submaps of 10 of 3d's forest
     keyframes at the offline widths (512 + 64 rays, 512 samples in 2
     chunks, MASK), 3 iterations, against each submap trained alone with the
     JAX package's drift bounds (B1, B2 twice a step, B3 once; each
@@ -2169,6 +2177,7 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     from loner_tpu_torch.mapping.keyframe import stack_window
     from loner_tpu_torch.models.nerf import NeRFConfig
     from loner_tpu_torch.multichip import dryrun_multichip
+    from loner_tpu_torch.ops.fused_encoder import TableSlabs
     from loner_tpu_torch.ops.triad_field import TriadConfig
     from loner_tpu_torch.parallel import pose_graph as pg
     from loner_tpu_torch.parallel import submaps_parallel as sp
@@ -2271,20 +2280,23 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     hdraws = opt.draw_step(hcfg, hwindow, gen, dev)
     hsingle = opt.make_train_step(hcfg, hcube, dev)
 
-    def warm(name, step, flags, profiled):
-        """Wall ms of 4 warm calls of ``step`` on the hash-on window (host
-        clock, synchronised), the peak memory since the last reset, and, for
-        ``profiled``, device busy ms over 3 more."""
+    def warm(name, step, flags, profiled, inputs=None, n_warm=4, n_profiled=3):
+        """Wall ms of ``n_warm`` warm calls of ``step`` on ``inputs`` (state,
+        window, draws; the hash-on window's when None) (host clock,
+        synchronised), the peak memory since the last reset, and, for
+        ``profiled``, device busy ms over ``n_profiled`` more."""
+        st, win, dr = inputs or (hstate, hwindow, hdraws)
+        m = torch.ones(st.poses.shape[0], device=dev)
         times = []
-        for _ in range(4):
+        for _ in range(n_warm):
             t = time.perf_counter()
-            step(hstate, hwindow, flags, mask, 0, hdraws)
+            step(st, win, flags, m, 0, dr)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         row = {"wall_ms": sum(times) / len(times), "wall_ms_all": times,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         if profiled:
-            row["profile"] = _profile(lambda: step(hstate, hwindow, flags, mask, 0, hdraws), 3, row["wall_ms"],
+            row["profile"] = _profile(lambda: step(st, win, flags, m, 0, dr), n_profiled, row["wall_ms"],
                                       out_dir / f"step_profile_{name}.txt")
         busy = f", device busy {row['profile']['busy_ms']:.3f} ms" if profiled else ""
         print(f"3i {name}: {row['wall_ms']:.3f} ms a warm step (host clock){busy}, peak "
@@ -2316,6 +2328,37 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     res["dp_tp"], res["hash_on_single"] = dptp, hash_single
     del hstate, hwindow, hdraws, href, new, aux, slabs
     torch.cuda.empty_cache()
+
+    # ---- DP x TP (2, 2) under the alternate encoders: 3h's flagships -------
+    enc_tp = {}
+    for impl in ("exact", "packed", "cell"):
+        ecfg, ecube, estate, ewindow = flagship(device=dev, cfg=opt.MapperConfig(nerf=NeRFConfig(encoding_impl=impl)))
+        edraws = opt.draw_step(ecfg, ewindow, gen, dev)
+        emask = torch.ones(ecfg.max_keyframes, device=dev)
+        esingle = opt.make_train_step(ecfg, ecube, dev)
+        estep = tp.make_tp_train_step(ecfg, ecube, mesh(4, 2))
+        for flags, kind in ((joint, "joint"), (frozen, "frozen")):
+            torch.cuda.reset_peak_memory_stats()
+            eref = [esingle(estate, ewindow, flags, emask, 0, edraws)[1] for _ in range(2)]
+            single_row = warm(f"single_{impl}", esingle, flags, kind == "joint", (estate, ewindow, edraws), 2, 1)
+            torch.cuda.reset_peak_memory_stats()
+            (new, aux), launches = counted(f"DP x TP (2, 2) {impl} {kind}", {"pdf_sample": 2},
+                                           lambda: estep(estate, ewindow, flags, emask, 0, edraws))
+            table = new.params["sigma"]["table"]
+            if impl == "cell":  # (16, 65536, 16) in two slabs along the cells
+                ok = isinstance(table, TableSlabs) and [tuple(t.shape) for t in table] == [(16, 32768, 16)] * 2
+            else:  # the (16, 2, 2^18) master stays whole on the first device
+                ok = not isinstance(table, TableSlabs) and table.device == dev and tuple(table.shape) == (16, 2, 1 << 18)
+            if not ok:
+                raise AssertionError(f"3i DP x TP (2, 2) {impl}: sigma table {table}")
+            enc_tp[f"{impl}_{kind}"] = {
+                "launches": launches, "single": single_row,
+                **warm(f"dp_tp_{impl}", estep, flags, kind == "joint", (estate, ewindow, edraws), 2, 1),
+                "held": held(f"DP x TP (2, 2) {impl} {kind}", eref[0], eref[1], aux, BF16)}
+            del eref, new, aux, table
+        del ecfg, ecube, estate, ewindow, edraws, esingle, estep
+        torch.cuda.empty_cache()
+    res["dp_tp_encoders"] = enc_tp
 
     # ---- EP: 4 submaps of the forest at the offline widths ----------------
     kfs, fcube, ray_range, _ = forest
@@ -2425,7 +2468,7 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     res["wall_s"] = time.perf_counter() - t_leg
     res["launches"] = {**{f"dp_{n}": r["launches"] for n, r in dp.items()}, "dp_8_f32": f_launches,
                        "window3_over_2": launches3, **{f"dp_tp_{k}": v["launches"] for k, v in dptp.items()},
-                       "ep": ep_launches, "slam_split": res["slam_split"]["launches"], "dryrun": dry_launches}
+                       **{f"dp_tp_{k}": v["launches"] for k, v in enc_tp.items()}, "ep": ep_launches, "slam_split": res["slam_split"]["launches"], "dryrun": dry_launches}
     print(f"leg 3i: {res['wall_s']:.1f} s", flush=True)
     return res
 
@@ -2797,8 +2840,8 @@ def main() -> None:
     # The hash tables are scaled from their init (1e-4) to 0.1: at init the
     # FusedHash field is near zero everywhere. Where sigma is that small,
     # alpha = 1 - exp(-delta*sigma) is exactly 0 on one device and one ulp on
-    # the other, and the L1 loss |w - w_gt| has a kink there (slope 0 against
-    # +-1), so the FusedHash comparison uses the L2 selection, smooth at 0.
+    # the other, so the FusedHash comparison uses the L2 selection, smooth at
+    # 0 (the L1 loss |w - w_gt| is not differentiable there).
     # Its finest level has 2^19 cells across the cube, 32 f32 ulps of a
     # coordinate each, so the ulps by which the two devices' rays differ move
     # points across cell borders, where the cell-local feature and its point

@@ -34,6 +34,14 @@ class LossConfig(NamedTuple):
     cam_lambda: float = 1.0  # the camera loss's weight
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the JAX package's derivative at 0: ``jnp.abs`` passes 1
+    there (at -0 too), ``torch.abs`` 0. An L1 term whose argument is exactly
+    0 (a sample's weight that rounds to 0 where its target is 0, an opacity
+    of exactly 1) keeps its gradient, as in JAX."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.to(x.dtype)
     count = torch.clamp(torch.sum(m), min=1.0)
@@ -134,9 +142,9 @@ def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, glo
     w_gt = torch.where(opaque[:, None], w_gt, torch.zeros_like(w_gt))
 
     err = w_pred - w_gt
-    per_elem = torch.abs(err) if cfg.loss_selection in ("L1_JS", "L1_LOS") else err * err
+    per_elem = _abs(err) if cfg.loss_selection in ("L1_JS", "L1_LOS") else err * err
     los_loss = _masked_mean(torch.mean(per_elem, dim=1), valid)
-    opacity_loss = _masked_mean(torch.abs(render.opacity - 1.0), opaque)
+    opacity_loss = _masked_mean(_abs(render.opacity - 1.0), opaque)
 
     lam = los_lambda_at_step(cfg, global_step)
     loss = cfg.depthloss_lambda * depth_mse + lam * los_loss + opacity_loss
@@ -166,6 +174,6 @@ def compute_lidar_loss(render, bundle, scale_factor: float, cfg: LossConfig, glo
 
 def compute_camera_loss(render, intensities_gt: torch.Tensor, valid: torch.Tensor, cfg: LossConfig):
     """The masked L1 intensity loss, scaled by ``cam_lambda``; (loss, aux)."""
-    err = torch.abs(render.rgb - intensities_gt)
+    err = _abs(render.rgb - intensities_gt)
     loss = cfg.cam_lambda * _masked_mean(torch.mean(err, dim=-1), valid)
     return loss, {"cam_l1": loss}

@@ -24,6 +24,13 @@ Corner sampling takes uniforms ``u`` (L, N) (under "level1" only row 0 is
 read), or draws them from a ``torch.Generator`` seeded from the two key
 words inside each call, so that equal-sized point chunks with one key draw
 equal uniforms, as in the JAX package.
+
+A table may come as :class:`TableSlabs`, contiguous slabs of its cell axis
+each on its own device (the hash-table tensor parallelism of
+``parallel/tp.py``): each slab packs and gathers the rows it owns, zeros
+elsewhere, the partial rows are summed on the points' device, where the
+features and d_pts are computed, and each slab's gradient scatters only its
+own rows, on its device, with the same uniforms on every slab.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import torch
 
 from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.models.hash_encoding import _CORNERS, _PRIMES, _trilinear_w, f32_scale
-from loner_tpu_torch.ops.fused_encoder import _U32, _mul_u32
+from loner_tpu_torch.ops.fused_encoder import _U32, TableSlabs, _mul_u32, _own_rows, _scatter_rows
 from loner_tpu_torch.ops.hash_encode_fast import _dfrac, uniforms_from_key
 
 
@@ -114,91 +121,133 @@ def _jitter_level_choice(pts_t: torch.Tensor, n_levels: int) -> torch.Tensor:
     return h % n_levels
 
 
-def _cell_fwd(table: torch.Tensor, pts_t: torch.Tensor, cfg: CellHashConfig):
-    """(features (L*2, N), rows (L, N), the gathered bf16 rows (L, N, 16))."""
-    packed = table.to(torch.bfloat16)
+def _gather_rows(slabs, idx: torch.Tensor) -> torch.Tensor:
+    """The bf16 row of every (level, point), (L, N, 16) on ``idx``'s device,
+    from the table whole (one slab) or from its slabs: each slab packs and
+    gathers the rows it owns on its own device, zeros elsewhere, and the
+    partial rows (one nonzero per point) are summed in slab order."""
+    l = idx.shape[0]
+    if len(slabs) == 1:
+        packed = slabs[0].to(torch.bfloat16)
+        return torch.stack([packed[lvl][idx[lvl]] for lvl in range(l)])  # ONE row gather per (point, level)
+    v, row0 = None, 0
+    for slab in slabs:
+        packed = slab.to(torch.bfloat16)
+        local, own = _own_rows(idx.to(slab.device), row0, slab.shape[1])
+        part = torch.stack([packed[lvl][local[lvl]] for lvl in range(l)]).mul_(own[..., None]).to(idx.device)
+        v = part if v is None else v + part
+        row0 += slab.shape[1]
+    return v
+
+
+def _cell_fwd(slabs, pts_t: torch.Tensor, cfg: CellHashConfig):
+    """(features (L*2, N), rows (L, N), the gathered bf16 rows (L, N, 16))
+    from the table's slabs (one for a whole table)."""
     scales, resolutions = cfg.level_scales(), cfg.level_resolutions()
     idx = _level_rows(pts_t, cfg)
-    outs, vs = [], []
+    v = _gather_rows(slabs, idx)
+    outs = []
     for lvl in range(cfg.n_levels):
         _, frac = _cell_and_frac(pts_t, scales[lvl], int(resolutions[lvl]))
         wt = _trilinear_w(frac).T  # (N, 8)
-        v = packed[lvl][idx[lvl]]  # (N, 16): ONE row gather per point
-        outs.append(torch.stack([torch.sum(v[:, 0::2].float() * wt, dim=1),
-                                 torch.sum(v[:, 1::2].float() * wt, dim=1)]))
-        vs.append(v)
-    return torch.cat(outs, dim=0), idx, torch.stack(vs)
+        outs.append(torch.stack([torch.sum(v[lvl, :, 0::2].float() * wt, dim=1),
+                                 torch.sum(v[lvl, :, 1::2].float() * wt, dim=1)]))
+    return torch.cat(outs, dim=0), idx, v
+
+
+def _cell_rows(w: torch.Tensor, g_l: torch.Tensor) -> torch.Tensor:
+    """(N, 16) corner-major row updates: upd[n, c*2 + f] = w[c, n] * g[f, n]."""
+    n = w.shape[1]
+    return (w.T[:, :, None] * g_l.T[:, None, :]).reshape(n, 16)
 
 
 def _cell_bwd(cfg: CellHashConfig, idx: torch.Tensor, v: torch.Tensor, pts_t: torch.Tensor, g: torch.Tensor,
-              u: Optional[torch.Tensor], need_table: bool, need_pts: bool):
-    """(d_table (L, T, 16), d_pts (3, N)) from the cotangent g (L*2, N); a
-    ``u`` (L, N) samples one corner per scattered row."""
+              u: Optional[torch.Tensor], slab_rows, need_pts: bool):
+    """(the slabs' table gradients, d_pts (3, N)) from the cotangent g
+    (L*2, N). ``slab_rows`` lists each slab's (device, rows, needs a
+    gradient?); slab m's gradient (L, rows, 16) is built on its own device
+    from the rows it owns (None where it needs none), with the same
+    uniforms ``u`` (L, N) on every slab: one corner sampled per scattered
+    row."""
     l, n = idx.shape
     g = g.reshape(l, 2, n)
     scales, resolutions = cfg.level_scales(), cfg.level_resolutions()
     t = cfg.table_size
     level1 = cfg.bwd == "level1"
-    d_table = d_pts = None
+    d_slabs, slabs, row0 = [], [], 0  # slabs: (device, row0, rows, gradient) of each that needs one
+    for dev, rows, need in slab_rows:
+        d_slabs.append(torch.zeros((l, rows, 16), dtype=torch.float32, device=dev) if need else None)
+        if need:
+            slabs.append((dev, row0, rows, d_slabs[-1]))
+        row0 += rows
+    d_pts = None
 
-    def rows(w, g_l):  # upd[n, c*2 + f] = w[c, n] * g[f, n]
-        return (w.T[:, :, None] * g_l.T[:, None, :]).reshape(n, 16)
-
-    if need_table:
-        d_table = torch.zeros((l * t, 16), dtype=torch.float32, device=g.device)
-        if level1:
-            choice = _jitter_level_choice(pts_t, l)  # (N,)
-            g_sel = torch.gather(g, 0, choice[None, None, :].expand(1, 2, n))[0]  # (2, N)
-            scale_sel = torch.as_tensor(scales.astype(np.float32), device=g.device)[choice]
-            scaled = pts_t * scale_sel[None, :] + 0.5
-            w_sel = _trilinear_w(scaled - torch.floor(scaled))
+    if slabs and level1:
+        choice = _jitter_level_choice(pts_t, l)  # (N,)
+        g_sel = torch.gather(g, 0, choice[None, None, :].expand(1, 2, n))[0]  # (2, N)
+        scale_sel = torch.as_tensor(scales.astype(np.float32), device=g.device)[choice]
+        scaled = pts_t * scale_sel[None, :] + 0.5
+        w_sel = _trilinear_w(scaled - torch.floor(scaled))
+        idx_sel = torch.gather(idx, 0, choice[None, :])[0]
+        for dev, r0, rows, d in slabs:
+            w = w_sel.to(dev)
             if u is not None:
-                w_sel = _corner_sample_w(w_sel, u[0])
-            combined = choice * t + torch.gather(idx, 0, choice[None, :])[0]
-            d_table.index_add_(0, combined, rows(w_sel, g_sel) * float(l))
+                w = _corner_sample_w(w, u[0].to(dev))
+            upd = _cell_rows(w, g_sel.to(dev)) * float(l)
+            local = idx_sel.to(dev)
+            if rows != t:  # the combined index counts this slab's rows
+                local, own = _own_rows(local, r0, rows)
+                upd = upd * own[:, None]
+            d.view(l * rows, 16).index_add_(0, choice.to(dev) * rows + local, upd)
     if need_pts:
         d_pts = torch.zeros_like(pts_t)
         corner_f = torch.as_tensor(_CORNERS, dtype=torch.float32, device=g.device)[:, :, None]  # (8, 3, 1)
         sign = 2.0 * corner_f - 1.0
     for lvl in range(l):
         _, frac = _cell_and_frac(pts_t, scales[lvl], int(resolutions[lvl]))
-        if need_table and not level1:
-            w = _trilinear_w(frac)
-            if u is not None:
-                w = _corner_sample_w(w, u[lvl])
-            d_table.index_add_(0, idx[lvl] + lvl * t, rows(w, g[lvl]))
+        if not level1:
+            for dev, r0, rows, d in slabs:
+                w = _trilinear_w(frac.to(dev))
+                if u is not None:
+                    w = _corner_sample_w(w, u[lvl].to(dev))
+                _scatter_rows(d[lvl], idx[lvl].to(dev), _cell_rows(w, g[lvl].to(dev)), r0, t)
         if need_pts:
             pc = v[lvl, :, 0::2].float().T * g[lvl, 0][None, :] + v[lvl, :, 1::2].float().T * g[lvl, 1][None, :]
             d_pts = d_pts + _dfrac(pc, frac, corner_f, sign) * f32_scale(scales[lvl])
-    if d_table is not None:
-        d_table = d_table.reshape(l, t, 16)
-    return d_table, d_pts
+    return d_slabs, d_pts
 
 
 class _CellEncode(torch.autograd.Function):
+    """Inputs (pts_t, cfg, sample, key, u, *slabs): the table whole, or its
+    :class:`TableSlabs`."""
+
     @staticmethod
-    def forward(ctx, table, pts_t, cfg, sample, key, u):
-        out, idx, v = _cell_fwd(table, pts_t, cfg)
+    def forward(ctx, pts_t, cfg, sample, key, u, *slabs):
+        out, idx, v = _cell_fwd(slabs, pts_t, cfg)
         ctx.cfg, ctx.sample = cfg, sample
+        ctx.slab_rows = [(s.device, s.shape[1]) for s in slabs]
         ctx.save_for_backward(idx, v, pts_t, key, u)
         return out
 
     @staticmethod
     def backward(ctx, g):
         idx, v, pts_t, key, u = ctx.saved_tensors
-        if ctx.sample and u is None and ctx.needs_input_grad[0]:
+        need = ctx.needs_input_grad[5:]
+        if ctx.sample and u is None and any(need):  # drawn once, on the points' device, for every slab
             u = uniforms_from_key(key, tuple(idx.shape), g.device)
-        d_table, d_pts = _cell_bwd(ctx.cfg, idx, v, pts_t, g.contiguous(), u if ctx.sample else None,
-                                   ctx.needs_input_grad[0], ctx.needs_input_grad[1])
-        return d_table, d_pts, None, None, None, None
+        d_slabs, d_pts = _cell_bwd(ctx.cfg, idx, v, pts_t, g.contiguous(), u if ctx.sample else None,
+                                   [(dev, rows, nd) for (dev, rows), nd in zip(ctx.slab_rows, need)],
+                                   ctx.needs_input_grad[0])
+        return (d_pts, None, None, None, None, *d_slabs)
 
 
-def cell_hash_encode_t(table: torch.Tensor, pts_t: torch.Tensor, cfg: CellHashConfig,
+def cell_hash_encode_t(table, pts_t: torch.Tensor, cfg: CellHashConfig,
                        bwd_key: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(L*2, N) encoding of pts_t (3, N) in [0, 1], one row gather per
-    (point, level), differentiable in the table (L, T, 16) and the points.
-    ``bwd_key`` (two words) or ``u`` (L, N) turns on corner sampling in the
-    table gradient."""
+    (point, level), differentiable in the table (L, T, 16), a tensor or its
+    :class:`TableSlabs`, and the points. ``bwd_key`` (two words) or ``u``
+    (L, N) turns on corner sampling in the table gradient."""
     sample = bwd_key is not None or u is not None
     key = None if bwd_key is None else torch.as_tensor(bwd_key).to(torch.int64)
-    return _CellEncode.apply(table, pts_t.contiguous(), cfg, sample, key, u)
+    slabs = tuple(table) if isinstance(table, TableSlabs) else (table,)
+    return _CellEncode.apply(pts_t.contiguous(), cfg, sample, key, u, *slabs)

@@ -8,9 +8,9 @@ lives on the first data row, slab m of each table leaf (and of its Adam
 moments) on ``devices[0, m]``, everything else on ``devices[0, 0]``. In a
 step, data row i hands slab m to ``devices[i, m]``; each slab gathers the
 corner rows it owns (zeros elsewhere), the partial rows are summed on the
-row's compute device, where B4 runs, and each slab's gradient scatters only
-its own rows, on its own device (``ops/fused_encoder.py``). No device holds
-a whole table or its gradient.
+row's compute device, where the features are blended (B4 for the triad and
+FusedHash), and each slab's gradient scatters only its own rows, on its own
+device. No device holds a whole split table or its gradient.
 
 Usage::
 
@@ -18,9 +18,12 @@ Usage::
     step = make_tp_train_step(cfg, cube, mesh)
     state = shard_mapper_state(state, mesh)    # tables + their Adam moments
 
-Under TP the field's encoder must be one that gathers through
-``fused_encoder._gather_v_t``: the triad's hash level or FusedHash. The
-"exact", "packed" and "cell" encoders are not ported to TP.
+Every encoder runs under TP, and the tables split as the JAX package splits
+them, by the size of their second-to-last axis: the triad's hash level
+(1, T, 8F), FusedHash (L, T, 8F) and CellHash (L, T, 16) go into slabs
+along T (gathered and scattered per slab by ``ops/fused_encoder.py`` and
+``ops/cell_hash.py``); the "exact" and "packed" masters (L, 2, T)
+hold 2 there and stay whole on the first device, as JAX replicates them.
 """
 from __future__ import annotations
 
@@ -33,7 +36,6 @@ from loner_tpu_torch.mapping.optimizer import make_mesh_train_step
 from loner_tpu_torch.ops.fused_encoder import TableSlabs
 from loner_tpu_torch.parallel.sharding import Mesh, make_mesh, shard_window as _shard_window
 
-TP_ENCODERS = ("triad", "fused")
 _MIN_CELLS = 4096  # smaller tables (CP lines, tiny hash levels) stay whole
 
 
@@ -138,13 +140,9 @@ def make_tp_train_step(cfg, cube, mesh: Mesh, generator: Optional[torch.Generato
     """The DP x TP train step ``step(state, window, flags, pose_mask,
     iteration, draws=None) -> (new_state, aux)``: the state placed by
     :func:`shard_mapper_state` (a no-op once placed; the new state stays
-    placed), the window's keyframes over "data". Raises
-    ``NotImplementedError`` for an encoder other than the triad and
-    FusedHash."""
-    if cfg.nerf.encoding_impl not in TP_ENCODERS:
-        raise NotImplementedError(
-            f"encoding_impl={cfg.nerf.encoding_impl!r} under hash-table TP: only the triad's hash level and FusedHash "
-            "shard their tables (ROADMAP.md, queue A item 4)")
+    placed), the window's keyframes over "data", for every encoder: the
+    tables :func:`mapper_state_shardings` splits go in slabs, the others
+    stay whole."""
     rows = [tuple(r) for r in mesh.devices.reshape(mesh.devices.shape[0], -1)]
     step = make_mesh_train_step(cfg, cube, rows, generator)
 

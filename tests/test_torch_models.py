@@ -320,6 +320,44 @@ def test_composite_matches_jax_values_and_grads():
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-5)
 
 
+def test_l1_terms_take_the_jax_gradient_at_zero():
+    """An L1 term whose argument is exactly 0 passes its gradient as
+    ``jnp.abs`` does (1 at 0, where ``torch.abs`` passes 0): the lidar loss
+    on samples whose weight rounds to 0 away from the surface (a density
+    whose alpha rounds to 0, the target 0 there) and on a ray whose opacity
+    is exactly 1, and the camera loss where a colour equals its target."""
+    b, z, sig = _render_inputs(seed=12)
+    sig[0, :, 2] = 1e-7  # alpha rounds to 0; its derivative does not
+    sig[0, 1, 0] = 1e4  # ray 1 (opaque) saturates at its first sample
+    scale = 23.0
+    jcfg = jlosses.LossConfig()
+    tcfg = tlosses.LossConfig(**{k: getattr(jcfg, k) for k in tlosses.LossConfig._fields})
+    st = T(sig).requires_grad_(True)
+    rgb, depth, w, opac, var = trender.composite_t(st, T(z), T(b["directions"]), far=T(b["far"]))
+    assert float(opac[1].detach()) == 1.0 and float(w[3, 2].detach()) == 0.0
+    loss, _ = tlosses.compute_lidar_loss(trender.RenderResult(rgb, depth, w, opac, var, T(z), None, st),
+                                         _torch_bundle(b), scale, tcfg, 3.0, 2.0)
+    loss.backward()
+
+    def j_loss(sg):
+        o = jrender.composite_t(sg, jnp.asarray(z), jnp.asarray(b["directions"]), far=jnp.asarray(b["far"]),
+                                sigma_only=True)
+        r = jrender.RenderResult(*o, jnp.asarray(z), None, sg)
+        return jlosses.compute_lidar_loss(r, _jax_bundle(b), scale, jcfg, 3.0, 2.0)[0]
+
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(jax.grad(j_loss)(jnp.asarray(sig))), rtol=1e-4, atol=1e-6)
+
+    rgb = np.random.default_rng(13).uniform(size=(24, 3)).astype(np.float32)
+    target = rgb.copy()
+    target[::2] += 0.1  # every other ray off its target; the rest exactly on it
+    valid = np.arange(24) < 20
+    tr = T(rgb).requires_grad_(True)
+    tlosses.compute_camera_loss(trender.RenderResult(tr, *[None] * 7), T(target), T(valid), tcfg)[0].backward()
+    jg = jax.grad(lambda c: jlosses.compute_camera_loss(jrender.RenderResult(c, *[None] * 7), jnp.asarray(target),
+                                                        jnp.asarray(valid), jcfg)[0])(jnp.asarray(rgb))
+    np.testing.assert_array_equal(tr.grad.numpy(), np.asarray(jg))
+
+
 @pytest.mark.parametrize("selection", ["L1_JS", "L2_LOS"])
 def test_lidar_loss_matches_jax_values_and_grads(selection):
     b, z, sig = _render_inputs(seed=11)

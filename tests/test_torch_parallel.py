@@ -349,11 +349,14 @@ class TestTPSharding:
         assert np.all(np.isfinite(losses))
 
 
-@pytest.mark.parametrize("hash_term", ["triad_hash_tp", "fused_tp"])
+@pytest.mark.parametrize("hash_term", ["triad_hash_tp", "fused_tp", "exact_tp", "packed_tp", "cell_tp"])
 def test_tp_step_matches_jax(hash_term):
     """One DP x TP step on (4, 2) against JAX's ``make_tp_train_step`` on
     the virtual mesh, JAX's draws handed over: loss 1e-5, the new table
-    within lr/5 of JAX's and its delta 1e-3 normwise where |g| >= 1e-6."""
+    within lr/5 of JAX's and its delta 1e-3 normwise where |g| >= 1e-6.
+    CellHash runs its exact table gradient (level1 picks levels from the
+    points' last bits, which the packages' samplers round apart:
+    tests/torch_parity.py)."""
     from loner_tpu.parallel.tp import make_dp_tp_mesh as j_mesh, make_tp_train_step as j_tp
 
     jcfg, jcube, jstate, jwindow, tcfg, tcube, twindow = _setup(hash_term)
@@ -395,10 +398,106 @@ def test_no_slab_holds_more_than_its_rows(monkeypatch):
 
 
 @pytest.mark.parametrize("impl", ["exact", "packed", "cell"])
-def test_alternate_encoders_raise_under_tp(impl):
-    cfg, cube, _, _ = _port(impl)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        ttp.make_tp_train_step(cfg, cube, cpu_mesh(8, 2))
+def test_alternate_encoder_tables_placed_as_jax(impl):
+    """CellHash's (4, 4096, 16) sigma table and its Adam moments go into
+    slabs over "model" ((4, 2048, 16) on a (4, 2) mesh); the exact and
+    packed masters (4, 2, 2^14) hold 2 on their second-to-last axis, under
+    the 4096 from which JAX splits, and stay one tensor on the first
+    device."""
+    cfg, cube, state, window = _port(f"{impl}_tp")
+    mesh = cpu_mesh(8, 2)
+    where = ttp.mapper_state_shardings(state, mesh)
+    sharded = ttp.shard_mapper_state(state, mesh)
+    trees = (where.params["sigma"]["table"], where.opt_sigma.mu["table"], where.opt_sigma.nu["table"])
+    leaves = (sharded.params["sigma"]["table"], sharded.opt_sigma.mu["table"], sharded.opt_sigma.nu["table"])
+    if impl == "cell":
+        assert all(w == ttp.SlabPlacement(tuple(mesh.devices[0, :])) for w in trees)
+        for leaf in leaves:
+            assert isinstance(leaf, tfe.TableSlabs) and [tuple(t.shape) for t in leaf] == [(4, 2048, 16)] * 2
+        assert [tuple(t.shape) for t in sharded.params["intensity"]["table"]] == [(4, 4096, 16)] * 2
+    else:
+        assert all(w == mesh.first_device for w in trees)
+        for leaf in leaves + (sharded.params["intensity"]["table"],):
+            assert isinstance(leaf, torch.Tensor) and not isinstance(leaf, tfe.TableSlabs)
+            assert leaf.device == mesh.first_device and leaf.shape[-2] == 2
+        assert tuple(sharded.params["sigma"]["table"].shape) == (4, 2, 1 << 14)
+
+
+@pytest.mark.parametrize("bwd", ["exact", "level1"])
+def test_cell_tp_step_matches_single_device(bwd):
+    """A CellHash DP x TP step on (4, 2) against the port's single step from
+    one state and one set of draws, under both table gradients: the loss
+    equal, the sigma table's gradient within 1e-6 of its largest entry.
+    Under level1 some points choose a level above 0 in the second slab, so
+    a combined index that counted the whole table's rows would show."""
+    cfg, cube, state, window = _port("cell_tp")
+    cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_bwd=bwd))
+    draws = topt.draw_step(cfg, window, torch.Generator().manual_seed(12), "cpu")
+    _, single = topt.make_train_step(cfg, cube, "cpu")(state, window, _flags("joint"), _mask(cfg), 0, draws)
+    _, sharded = ttp.make_tp_train_step(cfg, cube, cpu_mesh(8, 2))(state, window, _flags("joint"), _mask(cfg), 0,
+                                                                    draws)
+    assert float(sharded["loss"]) == float(single["loss"])
+    slabs = sharded["grads"]["sigma"]["table"]
+    assert isinstance(slabs, tfe.TableSlabs) and bool(torch.any(slabs[1][1:] != 0))
+    g, g1 = ttp.gather_mapper_state(sharded["grads"]["sigma"])["table"], single["grads"]["sigma"]["table"]
+    assert float((g - g1).abs().max()) <= 1e-6 * float(g1.abs().max())
+    assert tp.rel_err(sharded["grads"]["poses"], single["grads"]["poses"]) <= TOL
+
+
+def test_no_cell_slab_holds_more_than_its_rows(monkeypatch):
+    """CellHash on a (2, 4) mesh: every gather reads, and every table
+    gradient writes, slabs of T / 4 rows; the step's table gradient and Adam
+    moments stay in slabs."""
+    from loner_tpu_torch.ops import cell_hash as tch
+
+    cfg, cube, state, window = _port("cell_tp")
+    rows = {"gather": [], "dtable": []}
+    gather, bwd = tch._gather_rows, tch._cell_bwd
+
+    def gather_rec(slabs, idx):
+        rows["gather"] += [s.shape[1] for s in slabs]
+        return gather(slabs, idx)
+
+    def bwd_rec(*a, **k):
+        d_slabs, d_pts = bwd(*a, **k)
+        rows["dtable"] += [d.shape[1] for d in d_slabs]
+        return d_slabs, d_pts
+
+    monkeypatch.setattr(tch, "_gather_rows", gather_rec)
+    monkeypatch.setattr(tch, "_cell_bwd", bwd_rec)
+    new, aux = ttp.make_tp_train_step(cfg, cube, cpu_mesh(8, 4))(state, window, _flags("joint"), _mask(cfg), 0)
+    assert rows["gather"] == rows["dtable"] == [1024] * (2 * 4)  # 4096 cells over 4 model devices, 2 data rows
+    for tree in (aux["grads"]["sigma"]["table"], new.params["sigma"]["table"], new.opt_sigma.mu["table"],
+                 new.opt_sigma.nu["table"]):
+        assert isinstance(tree, tfe.TableSlabs) and [t.shape[1] for t in tree] == [1024] * 4
+
+
+@pytest.mark.parametrize("bwd", ["exact", "level1"])
+def test_cell_encode_on_slabs_matches_whole_table(bwd):
+    """``cell_hash_encode_t`` on 4 slabs against the whole table, with one
+    set of corner uniforms: the features bit-equal, d_pts equal, and the
+    slabs' gradients joined equal to the whole table's (rtol 1e-6)."""
+    from loner_tpu_torch.ops import cell_hash as tch
+
+    cfg = tch.CellHashConfig(n_levels=4, log2_cells=10, base_resolution=4, bwd=bwd)
+    rng = np.random.default_rng(13)
+    table = torch.as_tensor(rng.uniform(-1, 1, (4, cfg.table_size, 16)).astype(np.float32))
+    pts = torch.as_tensor(rng.uniform(0, 1, (3, 3000)).astype(np.float32))
+    u = torch.as_tensor(rng.uniform(0, 1, (4, 3000)).astype(np.float32))
+    w_out = torch.as_tensor(rng.normal(size=(8, 3000)).astype(np.float32))
+    outs, grads = [], []
+    for whole in (True, False):
+        t = table.clone().requires_grad_(True)
+        slabs = t if whole else tfe.TableSlabs(t.chunk(4, dim=1))
+        p = pts.clone().requires_grad_(True)
+        out = tch.cell_hash_encode_t(slabs, p, cfg, u=u)
+        torch.sum(torch.sin(out) * w_out).backward()
+        outs.append(out.detach())
+        grads.append((t.grad, p.grad))
+    np.testing.assert_array_equal(outs[1].numpy(), outs[0].numpy())
+    np.testing.assert_array_equal(grads[1][1].numpy(), grads[0][1].numpy())
+    np.testing.assert_allclose(grads[1][0].numpy(), grads[0][0].numpy(), rtol=1e-6)
+    assert bool(torch.any(grads[1][0][1:, 3 * cfg.table_size // 4:] != 0))  # the last slab, above level 0
 
 
 def test_tp_table_not_divisible_raises():

@@ -55,11 +55,12 @@ HASH = {
     "triad_hash": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=12), nerf={}),
     **{impl: dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
                   nerf=dict(encoding_impl=impl, **kw)) for impl, kw in _ENCODER_NERF.items()},
-    # tables of 2^13 (triad) and 2^12 (fused) cells: over the 4096 cells
-    # from which hash-table TP splits a table
+    # tables of 2^13 (triad) and 2^12 (fused, cell) cells: at or over the
+    # 4096 cells from which hash-table TP splits a table; the exact and packed
+    # masters (4, 2, 2^14) hold 2 on that axis and stay whole
     "triad_hash_tp": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=15), nerf={}),
-    "fused_tp": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=14, base_resolution=4),
-                     nerf=dict(encoding_impl="fused")),
+    **{f"{impl}_tp": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=14, base_resolution=4),
+                          nerf=dict(encoding_impl=impl, **kw)) for impl, kw in _ENCODER_NERF.items()},
 }
 
 
