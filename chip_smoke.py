@@ -9,7 +9,7 @@ Run from the root of a checkout, with one card:
 
 (``python3 chip_smoke.py --only 3h`` builds the kernels and runs leg 3h
 alone, with its reduced-depth steps, and prints neither result line;
-``--only 3i`` does the same for leg 3i.)
+``--only 3i`` and ``--only 3j`` do the same for legs 3i and 3j.)
 
 In order:
   1. print the card's name and power limit, build the kernel library
@@ -63,7 +63,9 @@ In order:
       never): ``python -m loner_tpu_torch.run_slam`` in-process over a
       36-pose synthetic sequence written to disk at 32 x 512 returns, with
       cfg/defaults.yaml as its baseline (ATE under 0.35 m, every output file
-      present); the offline FDT optimization (``optimize_implicit_map``) of
+      present); the offline FDT optimization (``optimize_implicit_map``,
+      through the encoder experiment's ``run_encoder``,
+      ``loner_tpu_torch/experiments/exp_encoder_flagship.py``) of
       an 80-tree forest at window 16, 512 + 64 rays, 512 samples, MASK rays
       and the exact occupancy update, at most 8 epochs (final held-out L1
       under 1.15 m; set-up, training and eval times apart; a window-16
@@ -72,8 +74,17 @@ In order:
       there: the window-16 step's and an eval render's);
       and ``python -m loner_tpu_torch.bench`` (its JSON line printed on its
       own; joint at most 1.05x frozen);
+  3j. the encoder experiment as a user runs it:
+      ``python -m loner_tpu_torch.experiments.exp_encoder_flagship
+      --encoders triad:hash=1,fused --max-epochs 1`` in-process, at full
+      width, every launch count set to 0 just before and read just after
+      (per step and eval render B1-B4 as the hash-on fields, the point
+      chunks and the frozen poses imply, B5 never), a finite L1, and B1-B4
+      held against their plain versions on the inputs met there;
   3e. loop closure at the reference operating point: the online half of
-      scripts/exp_quality_flagship.py through ``run_slam.run_trial`` (126
+      scripts/exp_quality_flagship.py through its port's ``run_online``
+      (``loner_tpu_torch/experiments/exp_quality_flagship.py``), which runs
+      ``run_slam.run_trial`` (126
       scans of one 31 m lap at 10 Hz, 32 x 512 returns, noise 0.01;
       cfg/defaults.yaml with loop closure on, motion compensation off and
       keyframes 0.75 s apart), every launch count set to 0 just before and
@@ -136,7 +147,8 @@ In order:
       with the tracker on device 0 and the mapper over [0, 0] (ATE under
       0.3 m) and ``dryrun_multichip(8)``, each part with every launch count
       set to 0 just before and read just after, and each sharded result held
-      against the single-device one on the same draws (``_parallel_leg``);
+      against the single-device one on the same draws (the bf16 MLP's
+      gradients within 1e-4 normwise; ``_parallel_leg``);
   4. at a reduced depth (2 keyframes, 64 + 16 rays, 64 samples, full widths)
      run one step on the card and the same step on the CPU from one state
      with the same draws, and compare the loss and the gradients: hash off
@@ -280,12 +292,20 @@ def _first_inputs(module, name: str, into: dict):
         setattr(module, name, fn)
 
 
-def _check_met_inputs(name, cp_in: dict, pdf_in: dict, bwd_in: dict = None) -> list:
+def _check_met_inputs(name, cp_in: dict, pdf_in: dict, bwd_in: dict = None, interp_in: dict = None) -> list:
     """B1 (``cp_fwd``), B3 (``pdf_sample``) and, when given, B2 (``cp_bwd``)
-    on the inputs a phase gave them, against their plain versions with the
-    bounds of the flagship checks: B1 1e-5 of the features' scale, B3 1e-6,
-    B2 dlines 1e-4 of its largest entry and dpts within 1e-4."""
+    and B4 (``interp_fwd``) on the inputs a phase gave them, against their
+    plain versions with the bounds of the flagship checks: B1 and B4 1e-5 of
+    the features' scale, B3 1e-6, B2 dlines 1e-4 of its largest entry and
+    dpts within 1e-4. B2's dlines in its f32 mode are held against the
+    plain version run in float64 (the exact sum of the same terms): the f32
+    plain version's ``index_add_`` sums each line cell's terms by atomics,
+    and on MASK rays' points, which crowd a few cells, it lands about 1.2e-4
+    of the largest entry from the exact sum (leg 3j, NVIDIA H100 80GB HBM3),
+    where the kernel lands about 3e-7; the bf16 mode, which rounds its
+    operands, is held against the f32 plain version."""
     from loner_tpu_torch.ops import cp_kernel, pdf_kernel
+    from loner_tpu_torch.ops import fused_encoder as fe
 
     rows = []
     for lines, pts, res, nf in cp_in.values():
@@ -298,10 +318,24 @@ def _check_met_inputs(name, cp_in: dict, pdf_in: dict, bwd_in: dict = None) -> l
         dl, dp = cp_kernel.cp_bwd(lines, pts, g, res, nf, *mm)
         dl_ref, dp_ref = cp_kernel.cp_bwd_ref(lines, pts, g, res, nf, *mm)
         e_dl, e_dp = float((dl - dl_ref).abs().max()), float((dp - dp_ref).abs().max())
-        rows.append({"kernel": "cp_bwd", "points": pts.shape[1], "dlines_err": e_dl,
-                     "dlines_scale": float(dl_ref.abs().max()), "dpts_err": e_dp,
-                     "ok": e_dl <= 1e-4 * float(dl_ref.abs().max()) and bool(torch.allclose(dp, dp_ref, 1e-4, 1e-4))})
+        row = {"kernel": "cp_bwd", "points": pts.shape[1], "dlines_err": e_dl,
+               "dlines_scale": float(dl_ref.abs().max()), "dpts_err": e_dp}
+        dl_ok = e_dl <= 1e-4 * row["dlines_scale"]
+        if tuple(mm) in ((), ("f32",)):
+            dl64 = cp_kernel.cp_bwd_ref(lines.double(), pts.double(), g.double(), res, nf)[0]
+            row["dlines_err_vs_f64"] = float((dl.double() - dl64).abs().max())
+            row["plain_err_vs_f64"] = float((dl_ref.double() - dl64).abs().max())
+            dl_ok = row["dlines_err_vs_f64"] <= 1e-4 * float(dl64.abs().max())
+            del dl64
+        rows.append({**row, "ok": dl_ok and bool(torch.allclose(dp, dp_ref, 1e-4, 1e-4))})
         del dl, dp, dl_ref, dp_ref
+    for pts, v_t, ecfg in (interp_in or {}).values():
+        ref = fe.interp_fwd_ref(pts, v_t, ecfg)
+        err = float((fe.interp_fwd(pts, v_t, ecfg) - ref).abs().max())
+        rows.append({"kernel": "interp_fwd", "points": pts.shape[1], "levels": ecfg.n_levels,
+                     "features": ecfg.n_features, "max_abs_err": err,
+                     "ok": err <= 1e-5 * max(1.0, float(ref.abs().max()))})
+        del ref
     for bins, cdf, u, eps in pdf_in.values():
         err = float((pdf_kernel.pdf_sample(bins, cdf, u, eps) - pdf_kernel.pdf_sample_ref(bins, cdf, u, eps)).abs().max())
         rows.append({"kernel": "pdf_sample", "rays": u.shape[0], "bins": bins.shape[1], "draws": u.shape[1],
@@ -961,52 +995,33 @@ def _cli_drive(root: Path, out_dir: Path, wrappers) -> dict:
 
 
 def _forest_keyframes():
-    """(keyframes, cube, ray range, seconds) of the offline FDT legs: an
+    """(keyframes, cube, ray range, seconds) of the offline FDT legs: the
+    encoder experiment's forest (``exp_encoder_flagship.forest_keyframes``), an
     80-tree forest, 40 keyframes on two circles of 32 x 512 returns ray-cast
     on the host."""
-    import numpy as np
-
-    from loner_tpu_torch.data import synthetic
-    from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
-    from loner_tpu_torch.geometry.world_cube import compute_world_cube
-    from loner_tpu_torch.mapping.keyframe import KeyFrame
+    from loner_tpu_torch.experiments import exp_encoder_flagship as enc
 
     t0 = time.perf_counter()
-    n_kfs, extent = 40, 40.0
-    scene = synthetic.Scene.forest(seed=1, extent=extent, n_trees=80)
-    poses_a, ts_a = synthetic.circular_trajectory(n_poses=n_kfs // 2, radius=extent * 0.45, z=1.8, period=n_kfs / 2.0)
-    poses_b, ts_b = synthetic.circular_trajectory(n_poses=n_kfs - n_kfs // 2, radius=extent * 0.22, z=1.8,
-                                                  period=n_kfs / 2.0)
-    poses = np.concatenate([poses_a, poses_b])
-    ts = np.concatenate([ts_a, ts_b + ts_a[-1] + 1.0])
-    ray_range = (2.5, 45.0)
-    cube = compute_world_cube(poses, ray_range=ray_range, rebase_to_first_pose=False)
-    kfs = []
-    rng = np.random.default_rng(0)
-    for i, (T, t) in enumerate(zip(poses, ts)):
-        dirs, dists, stamps, hit = synthetic.simulate_scan(scene, T, t, n_channels=32, n_azimuth=512,
-                                                           max_range=ray_range[1], rng=rng, noise_std=0.01)
-        kfs.append(KeyFrame(scan=make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=16384), timestamp=t,
-                            pose_index=i, tracked_pose=T, gt_pose=T,
-                            sky=sky_scan(dirs[~hit][:1024], ray_range[1] + 1.0, t, pad_to=1024)).compute_band_indices())
-    return kfs, cube, ray_range, time.perf_counter() - t0
+    kfs, cube = enc.forest_keyframes()
+    return kfs, cube, enc.RAY_RANGE, time.perf_counter() - t0
 
 
 def _offline_cfg(cube, ray_range):
-    """The offline FDT legs' mapper: window 16, 512 + 64 rays, 512 samples in
-    two point chunks, MASK trunk-band rays, 1024 samples a test ray."""
-    from loner_tpu_torch.mapping import optimizer as opt
+    """The offline FDT legs' mapper, the encoder experiment's ``triad_nohash``:
+    window 16, 512 + 64 rays, 512 samples in two point chunks, MASK
+    trunk-band rays, 1024 samples a test ray."""
+    from loner_tpu_torch.experiments import exp_encoder_flagship as enc
 
-    base = opt.MapperConfig()
-    return base._replace(
-        nerf=base.nerf._replace(num_colors=1), ray_range=ray_range, world_scale=cube.scale_factor, window_size=16,
-        max_keyframes=64, rays_per_kf=512, sky_rays_per_kf=64, n_samples_train=512, n_samples_test=1024,
-        rays_strategy="MASK", train_point_chunks=2)
+    cfg = enc.mapper_config("triad_nohash", cube)
+    if tuple(cfg.ray_range) != tuple(ray_range):
+        raise AssertionError(f"offline legs: ray range {ray_range}, the experiment's {cfg.ray_range}")
+    return cfg
 
 
 def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
     """The offline FDT map optimization (``optimize_implicit_map``) at the
-    triad-nohash leg of scripts/exp_encoder_flagship.py, on ``forest``
+    triad-nohash leg of scripts/exp_encoder_flagship.py, through the port's
+    experiment (``exp_encoder_flagship.run_encoder``), on ``forest``
     (:func:`_forest_keyframes`): an 80-tree forest,
     40 keyframes on two circles, ray range (2.5, 45), window 16, 512 + 64
     rays, 512 samples in two point chunks, MASK trunk-band rays,
@@ -1018,17 +1033,16 @@ def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
     (NeRFConfig.point_chunks), B3 once. B1 and B3 are then held against
     their plain versions on the first inputs they met at each shape, which
     must include the window-16 step's and an eval render's."""
+    from loner_tpu_torch.experiments import exp_encoder_flagship as enc
     from loner_tpu_torch.mapping import optimizer as opt
     from loner_tpu_torch.mapping.keyframe import stack_window
-    from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
     from loner_tpu_torch.models import sampling
     from loner_tpu_torch.ops import cp_kernel
 
     kfs, cube, ray_range, setup_s = forest
     n_kfs = len(kfs)
     cfg = _offline_cfg(cube, ray_range)
-    offline = OfflineConfig(window_size=16, iterations_per_window=32, max_epochs=8, n_eval_scans=6,
-                            eval_rays_per_scan=1024)
+    offline = enc.offline_config(8)
     print(f"offline FDT leg: forest of 80 trees, {n_kfs} scans ray-cast on the host in {setup_s:.1f} s", flush=True)
 
     cp_in, pdf_in = {}, {}
@@ -1037,8 +1051,7 @@ def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _first_inputs(cp_kernel, "cp_fwd", cp_in), _first_inputs(sampling, "pdf_sample", pdf_in):
-        result = optimize_implicit_map(cfg, cube, kfs, offline, device=dev,
-                                       log_fn=lambda m: print(m, flush=True))
+        record, result = enc.run_encoder(cfg, cube, kfs, offline, dev, log_fn=lambda m: print(m, flush=True))
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     renders = offline.n_eval_scans * result.epochs_run
@@ -1078,7 +1091,7 @@ def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
     res = {"l1_history_m": result.l1_history, "epochs": result.epochs_run, "iterations": result.iterations,
            "setup_s": setup_s, "wall_s": result.wall_time_s, "train_s": train_s, "eval_s": result.eval_time_s,
            "step_ms": step_ms, "step_profile": prof, "peak_mem_gib": peak_gib, "launches": launches,
-           "kernels_on_met_inputs": met,
+           "kernels_on_met_inputs": met, "experiment_record": record,
            "eval_renders": renders, "gate_m": 1.05, "jax_side_m": 1.002}
     print(f"offline FDT leg: L1 history {[round(x, 4) for x in result.l1_history]} m over {result.epochs_run} epochs, "
           f"{result.iterations} iterations; set-up {setup_s:.1f} s, training {train_s:.1f} s, eval "
@@ -1094,6 +1107,103 @@ def _offline_leg(out_dir: Path, wrappers, dev, forest) -> dict:
     del result, state, step, window
     torch.cuda.empty_cache()
     return res
+
+
+def _encoder_experiment_leg(out_dir: Path, wrappers, dev, forest) -> dict:
+    """Leg 3j: ``python -m loner_tpu_torch.experiments.exp_encoder_flagship
+    --encoders triad:hash=1,fused --max-epochs 1`` in-process at full width
+    (its forest: 80 trees, 40 scans of 32 x 512 returns; window 16, 512 + 64
+    rays, 512 samples in two point chunks), every launch count set to 0
+    just before and read just after. The poses are frozen offline, so no
+    step takes a point gradient and B5 never launches. Per train step B3
+    once, B4 once per point chunk, and with the triad's hash level B1 and B2
+    once per point chunk too; per eval render (6 held-out scans an epoch) B3
+    once, B4 (and with the triad B1) once per field chunk
+    (``NeRFConfig.point_chunks``). Fails on a non-finite L1 or other
+    launches; then B1-B4 are held against their plain versions on the first
+    inputs they met at each shape, which must include the window-16 step's
+    and an eval render's. Last, where a window-16 step of
+    each field's time goes: 4 synchronized steps and a profile of 3 more
+    (``offline_step_profile_<field>.txt`` in the output directory) from a fresh state on
+    ``forest``'s (:func:`_forest_keyframes`) first 16 keyframes."""
+    import numpy as np
+
+    from loner_tpu_torch.experiments import exp_encoder_flagship as enc
+    from loner_tpu_torch.geometry import se3
+    from loner_tpu_torch.mapping import optimizer as opt
+    from loner_tpu_torch.mapping.keyframe import stack_window
+    from loner_tpu_torch.models import sampling
+    from loner_tpu_torch.models.nerf import NeRFConfig
+    from loner_tpu_torch.ops import cp_kernel
+    from loner_tpu_torch.ops import fused_encoder as fe
+
+    t0 = time.perf_counter()
+    cp_in, bwd_in, pdf_in, interp_in = {}, {}, {}, {}
+    for w in wrappers:
+        w.launches = 0
+    with _first_inputs(cp_kernel, "cp_fwd", cp_in), _first_inputs(cp_kernel, "cp_bwd", bwd_in), \
+            _first_inputs(sampling, "pdf_sample", pdf_in), _first_inputs(fe, "interp_fwd", interp_in):
+        payload = enc.main(["--encoders", "triad:hash=1,fused", "--max-epochs", "1",
+                            "--out", str(out_dir / "exp_encoder_3j.json")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    offline, chunks, train_chunks = enc.offline_config(1), NeRFConfig().point_chunks, 2
+    expected = {k: 0 for k in ("cp_fwd", "cp_bwd", "pdf_sample", "interp_fwd", "interp_dpts")}
+    for spec, rec in payload["results"].items():
+        steps, renders = rec["iterations"], offline.n_eval_scans * rec["epochs"]
+        field = train_chunks * steps + chunks * renders  # field passes: train chunks, eval chunks
+        expected["pdf_sample"] += steps + renders
+        expected["interp_fwd"] += field
+        if spec.startswith("triad"):
+            expected["cp_fwd"] += field
+            expected["cp_bwd"] += train_chunks * steps
+        if not (rec["epochs"] == 1 and all(math.isfinite(x) for x in rec["l1_history_m"])):
+            raise AssertionError(f"leg 3j {spec}: {rec}")
+    launches = _check_launches("leg 3j (encoder experiment)", wrappers, expected)
+    met = _check_met_inputs("leg 3j", cp_in, pdf_in, bwd_in, interp_in)
+    rays = 16 * 576
+    want = {("cp_fwd", rays * 512 // train_chunks), ("cp_fwd", 1024 * 1024 // chunks),
+            ("interp_fwd", rays * 512 // train_chunks), ("interp_fwd", 1024 * 1024 // chunks),
+            ("cp_bwd", rays * 512 // train_chunks), ("pdf_sample", rays), ("pdf_sample", 1024)}
+    seen = {(r["kernel"], r["rays"] if r["kernel"] == "pdf_sample" else r["points"]) for r in met}
+    if not want <= seen:
+        raise AssertionError(f"leg 3j: kernel inputs met {sorted(seen)}, expected at least {sorted(want)}")
+    del cp_in, bwd_in, pdf_in, interp_in
+    torch.cuda.empty_cache()
+
+    kfs, cube = forest[0], forest[1]
+    window = stack_window(kfs[:16], n_sky_pad=1024, device=dev)
+    pose6 = se3.matrix_to_pose(torch.as_tensor(np.stack([k.gt_pose for k in kfs[:16]]), dtype=torch.float32))
+    flags = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=True, do_occ_update=False)
+    steps = {}
+    for spec in payload["results"]:
+        cfg = enc.mapper_config(spec, cube)
+        cfg = cfg._replace(occ=cfg.occ._replace(estimator="exact"))  # the offline loop's
+        state = opt.init_mapper_state(torch.Generator(device=dev).manual_seed(8), cfg, dev)
+        poses = state.poses.clone()
+        poses[:16] = pose6.to(dev)
+        state = state._replace(poses=poses)
+        step, mask = opt.make_train_step(cfg, cube, dev), torch.zeros(cfg.max_keyframes, device=dev)
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            state, _ = step(state, window, flags, mask, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        wall = sum(times[1:]) / 3
+        name = spec.replace(":", "_").replace("=", "")
+        steps[spec] = {"wall_ms": wall, "wall_ms_all": times,
+                       "profile": _profile(_steps(step, state, window, flags, mask), 3, wall,
+                                           out_dir / f"offline_step_profile_{name}.txt")}
+        del step, state
+        torch.cuda.empty_cache()
+    print(f"leg 3j: {time.perf_counter() - t0:.1f} s; " + "; ".join(
+        f"{k}: L1 {[round(x, 4) for x in r['l1_history_m']]} m, {r['iterations']} iterations, training "
+        f"{r['train_ms_per_step']:.2f} ms a step, wall {r['wall_time_s']:.1f} s; a window-16 step "
+        f"{steps[k]['wall_ms']:.2f} ms, device busy {steps[k]['profile']['busy_ms']:.3f} ms"
+        for k, r in payload["results"].items()), flush=True)
+    return {"wall_s": wall_s, "record": payload, "launches": launches, "kernels_on_met_inputs": met,
+            "window16_steps": steps}
 
 
 def _bench(wrappers) -> dict:
@@ -1123,14 +1233,16 @@ def _schedule_steps(schedule, n_passes: int) -> int:
     return sum(p.num_iterations for i in range(1, n_passes + 1) for p in phases_for_pass(schedule, i))
 
 
-def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
+def _loop_closure_leg(out_dir: Path, wrappers, dev) -> dict:
     """Loop closure at the reference operating point: the online half of
-    scripts/exp_quality_flagship.py through the port's ``run_slam.run_trial``.
+    scripts/exp_quality_flagship.py through the port's experiment
+    (``exp_quality_flagship.run_online``, which runs ``run_slam.run_trial``).
     One 31 m lap at 10 Hz (126 scans, radius 5 m, period 12.6 s, 32 x 512
     returns, noise 0.01) written by ``write_synthetic_dataset``,
     cfg/defaults.yaml with ray range (1, 40), scan budget 16384, motion
     compensation off, loop closure on and TEMPORAL keyframes 0.75 s apart
-    (QUALITY_r05.json's ``keyframe_spacing_s``). Every launch count is set
+    (QUALITY_r05.json's ``keyframe_spacing_s``; the script's 1.5 s is the
+    experiment's default). Every launch count is set
     to 0 just before the run and read just after: B1-B3 once per train step,
     the steps those of the schedule. Fails on no loop closure, or an
     estimated ATE at or over the tracking-only ATE or 0.1 m. Then the
@@ -1138,26 +1250,14 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     the poses within 1e-4 of the card's."""
     import numpy as np
 
-    from loner_tpu_torch import run_slam
-    from loner_tpu_torch.analysis.metrics import ate_rmse
     from loner_tpu_torch.config.build import build_schedule
-    from loner_tpu_torch.config.settings import load_settings
-    from loner_tpu_torch.data.dataset import SequenceDataset, write_synthetic_dataset
+    from loner_tpu_torch.experiments import exp_quality_flagship as quality
     from loner_tpu_torch.mapping import loop_closure
-    from loner_tpu_torch.runtime.trajectory_logger import load_tum
 
-    seq, run_dir = out_dir / "lc_seq", out_dir / "lc_run"
-    t0 = time.perf_counter()
-    write_synthetic_dataset(str(seq), n_poses=126, radius=5.0, period=12.6, n_channels=32, n_azimuth=512,
-                            noise_std=0.01)
-    settings = load_settings(str(root / "cfg" / "defaults.yaml"), overrides={
-        "data": {"ray_range": [1, 40], "scan_points_budget": 16384},
-        "system": {"loop_closure": {"enabled": True}},
-        "tracker": {"motion_compensation": {"enabled": False}},
-        "mapper": {"keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 0.75}}}},
-    })
-    dataset = SequenceDataset(str(seq), pad_to=16384)
-    setup_s = time.perf_counter() - t0
+    lc_dir = out_dir / "lc"
+    seq, run_dir = lc_dir / "seq", lc_dir / "run"
+    spacing = {"mapper": {"keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 0.75}}}}}
+    settings = quality.online_settings(overrides=spacing)
 
     # the refinement's solve, recorded with its inputs
     solve, solves = loop_closure.solve_pose_graph, []
@@ -1172,9 +1272,10 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     loop_closure.solve_pose_graph = recording_solve
     try:
         t0 = time.perf_counter()
-        ate_est = run_slam.run_trial(settings, dataset, str(run_dir), use_gt=False, device=dev)
+        online = quality.run_online(str(lc_dir), 126, dev, overrides=spacing)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        wall_s = online["wall_time_s"]
+        setup_s = time.perf_counter() - t0 - wall_s  # the sequence written to disk
     finally:
         loop_closure.solve_pose_graph = solve
     timing = np.atleast_2d(np.loadtxt(run_dir / "timing.csv", delimiter=",", skiprows=1))
@@ -1182,10 +1283,7 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     n_kfs = len(np.atleast_2d(np.loadtxt(run_dir / "trajectory" / "keyframe_trajectory.txt")))
     expected_steps = _schedule_steps(build_schedule(settings), n_kfs)
     launches = _check_launches("loop closure leg", wrappers, {k: steps for k in PATH_KERNELS})
-    gt_rel = np.linalg.inv(dataset.gt_poses[0])[None] @ dataset.gt_poses
-    track, t_track = load_tum(str(run_dir / "trajectory" / "tracking_only.txt"))
-    ate_track = float(ate_rmse(track, gt_rel, t_track, dataset.gt_times)["rmse"])
-    ba = json.loads((run_dir / "ba_info.json").read_text())
+    ate_track, ate_est, ba = online["ate_tracking_only_m"], online["ate_estimated_m"], online["ba"]
     track_ms = np.loadtxt(run_dir / "track_times.csv") * 1e3
 
     # the same solve on the CPU, from the same factors and priors
@@ -1194,22 +1292,23 @@ def _loop_closure_leg(root: Path, out_dir: Path, wrappers, dev) -> dict:
     p6, factors, kw, refined_card = solves[0]
     refined_cpu, cost_cpu = solve(p6.cpu(), factors, **kw)
     pg_err = float((refined_card.cpu() - refined_cpu).abs().max())
-    res = {"sequence_write_s": setup_s, "wall_s": wall_s, "scans": len(dataset), "keyframes": n_kfs,
+    res = {"sequence_write_s": setup_s, "wall_s": wall_s, "scans": online["n_scans"], "keyframes": n_kfs,
+           "experiment_record": online,
            "train_steps": steps, "expected_steps": expected_steps, "launches": launches,
            "ate_tracking_only_m": ate_track, "ate_estimated_m": float(ate_est), "ba_info": ba,
            "windows_its_per_s": [float(x) for x in timing[:, 2]], "track_ms_median": float(np.median(track_ms)),
            "pose_graph_card_vs_cpu": pg_err, "pose_graph_keyframes": int(p6.shape[0]),
            "jax_quality_r05": {"ate_tracking_only_m": 0.1455, "ate_estimated_m": 0.0298},
            "pose_graph_inputs": (p6, factors, kw)}  # for leg 3i; not written to the JSON file
-    print(f"loop closure leg: {len(dataset)} scans written in {setup_s:.1f} s, run {wall_s:.1f} s; {n_kfs} keyframes, "
-          f"{steps} train steps (schedule {expected_steps}); tracking-only ATE {ate_track:.4f} m, estimated ATE "
-          f"{float(ate_est):.4f} m (the JAX package's run on a TPU v5e, QUALITY_r05.json: 0.1455 / 0.0298 m, a "
+    print(f"loop closure leg: {online['n_scans']} scans written in {setup_s:.1f} s, run {wall_s:.1f} s; "
+          f"{n_kfs} keyframes, {steps} train steps (schedule {expected_steps}); tracking-only ATE "
+          f"{ate_track:.4f} m, estimated ATE {float(ate_est):.4f} m (the JAX package's run on a TPU v5e, QUALITY_r05.json: 0.1455 / 0.0298 m, a "
           f"quality figure); ba_info {ba}; windows {[round(x, 2) for x in res['windows_its_per_s']]} its/s, "
           f"tracking median {res['track_ms_median']:.2f} ms; pose graph card against CPU: max abs diff "
           f"{pg_err:.3e} over {int(p6.shape[0])} poses (bound 1e-4)", flush=True)
     if steps != expected_steps:
         raise AssertionError(f"loop closure leg: {steps} train steps, the schedule gives {expected_steps}")
-    if ba["n_loop_closures"] < 1:
+    if not ba or ba["n_loop_closures"] < 1:
         raise AssertionError(f"loop closure leg: no loop closure ({ba})")
     if not (math.isfinite(ate_est) and ate_est < ate_track and ate_est < 0.1):
         raise AssertionError(f"loop closure leg: estimated ATE {ate_est:.4f} m against tracking-only "
@@ -2131,9 +2230,11 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
     count to 0 just before and reads it just after, and holds its sharded
     result against the single-device one on the same draws: the loss 1e-6
     relative, gradients normwise within the CPU tests' 1e-5 (f32 MLP) or
-    2^-8 (the flagship's bf16 MLP: each shard's weight gradient is rounded
-    to bf16, the operand's type, before the shards' sum, where the single
-    step rounds the sum once) plus the spread of two single-device runs
+    1e-4 (the flagship's bf16 MLP: its weights round to bf16 once, before
+    the shards' copies, so the shards' weight gradients sum in f32 and the
+    sum rounds once, as in the single step; a rounding flip of one weight's
+    gradient, from summing in another order, reads about 5e-5) plus the
+    spread of two single-device runs
     (B2's and the table scatter's atomics sum in a varying order;
     reported). Parts: the flagship hash-off DP step over 1, 2, 4 and 8
     shards, 5 joint steps each (wall ms, device busy ms from a profile of 5
@@ -2186,7 +2287,7 @@ def _parallel_leg(root: Path, out_dir: Path, wrappers, dev, forest, pose_graph=N
 
     t_leg = time.perf_counter()
     names = [w.__name__ for w in wrappers]
-    BF16 = 2.0**-8
+    BF16 = 1e-4  # a bf16 rounding flip of one weight's gradient reads about 5e-5
 
     def mesh(n, model=None):
         devs = np.empty(n, dtype=object)
@@ -2576,8 +2677,14 @@ def main() -> None:
         (out_dir / "chip_smoke_3i.json").write_text(json.dumps(leg, indent=1))
         print("leg 3i passed")
         return
+    if sys.argv[1:] == ["--only", "3j"]:  # leg 3j alone: no kernel line and no device line
+        wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
+        leg = _encoder_experiment_leg(out_dir, wrappers, dev, _forest_keyframes())
+        (out_dir / "chip_smoke_3j.json").write_text(json.dumps(leg, indent=1))
+        print("leg 3j passed")
+        return
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only 3h or --only 3i)")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only 3h, 3i or 3j)")
 
     # the two hash-on fields: the triad's fat-row level (TriadConfig(hash_levels=1))
     # and the 16-level FusedHash (NeRFConfig(encoding_impl="fused"))
@@ -2803,10 +2910,15 @@ def main() -> None:
         r.update(cli_launches=cli["launches"][r["name"]], offline_launches=offline["launches"][r["name"]],
                  bench_launches=bench_res["launches"][r["name"]])
 
+    # ---- 3j: the encoder experiment at full width, the hash-on encoders -------
+    encoder_exp = _encoder_experiment_leg(out_dir, wrappers, dev, forest)
+    for r in report[:5]:
+        r["exp_encoder_launches"] = encoder_exp["launches"][r["name"]]
+
     # ---- 3e: loop closure at the reference operating point; 3f: the
     # camera phase at full width ---------------------------------------------
     root = Path(__file__).resolve().parent
-    loop = _loop_closure_leg(root, out_dir, wrappers, dev)
+    loop = _loop_closure_leg(out_dir, wrappers, dev)
     pose_graph = loop.pop("pose_graph_inputs")
     camera = _camera_leg(root, out_dir, wrappers, dev)
     for r in report[:3]:
@@ -2856,7 +2968,7 @@ def main() -> None:
     reduced.update(_encoders_reduced(dev, joint))
 
     summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
-               "bench": bench_res, "loop_closure": loop, "camera": camera, "map_tools": map_tools,
+               "bench": bench_res, "encoder_experiment": encoder_exp, "loop_closure": loop, "camera": camera, "map_tools": map_tools,
                "encoders": encoders, "parallel": parallel, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}

@@ -55,6 +55,7 @@ from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.geometry.rays import RayBundle, build_lidar_rays
 from loner_tpu_torch.models import sampling
 from loner_tpu_torch.models.losses import LossConfig, compute_lidar_loss
+from loner_tpu_torch.models.mlp import round_weights
 from loner_tpu_torch.models.nerf import NeRFConfig, init_nerf
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig, init_occ_grid, occ_grid_cotangent
 from loner_tpu_torch.models.rendering import RenderResult, chunk_points, render_rays
@@ -454,9 +455,11 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
     row. Each row builds its block's rays, samples and renders on its
     compute device; the loss runs once, on the first device, over the rows'
     per-ray outputs in keyframe order, and the gradients of every row's
-    copy of a parameter arrive summed at the parameter. The draws (one set
-    for the whole window, drawn on the first device) go to each row as its
-    slice."""
+    copy of a parameter arrive summed at the parameter; with several rows a
+    bf16 MLP's weights round to bf16 on the first device before the copies,
+    so that their gradient rounds once, after the sum (as the JAX package's
+    sharded step rounds it). The draws (one set for the whole window, drawn
+    on the first device) go to each row as its slice."""
     rows = [tuple(torch.device(d) for d in r) for r in rows]
     dev = rows[0][0]
     if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
@@ -491,6 +494,9 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
                    else draws.ray_idx)
         w = window.window_size
         devs = [r[0] for r in rows] if w % len(rows) == 0 else [dev]
+        sigma = params["sigma"]
+        if len(devs) > 1:  # a bf16 MLP's weight gradient rounds once, after the rows' sum
+            sigma = {**sigma, "mlp": round_weights(sigma["mlp"], cfg.nerf.sigma_mlp_config())}
         shards = []
         for row, (k0, k1, d_window) in zip(rows, split_window(window, devs)):
             d = row[0]
@@ -502,7 +508,7 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
                 u_enc=_slice(_shard_u_enc(draws.u_enc, r0 * n_samples, (r1 - r0) * n_samples, w * per_kf * n_samples),
                              0, None, d),
             )
-            render, bundle = render_shard({"sigma": _place(params["sigma"], row)}, poses.to(d), occ_grid.to(d),
+            render, bundle = render_shard({"sigma": _place(sigma, row)}, poses.to(d), occ_grid.to(d),
                                           d_window, d_draws, _slice(ray_idx, k0, k1, d), cubes[d])
             shards.append((render, bundle, d_draws))
         render = _join([s[0] for s in shards], dev)

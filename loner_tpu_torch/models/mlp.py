@@ -48,14 +48,31 @@ def _operand(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
 
 
+def round_weights(params: dict, cfg: MLPConfig) -> dict:
+    """A bf16 MLP's ``params`` with its weights rounded to bf16 once, here,
+    kept as ``"w_rounded"``, which :func:`mlp_apply_t` takes as they are (an
+    f32 MLP's ``params`` come back unchanged). A step that hands the MLP to
+    several devices rounds before the copies: each device's f32 weight
+    gradient comes back through its copy, the copies' gradients sum in f32,
+    and the sum rounds to bf16 once, as XLA rounds a replicated weight's
+    gradient after the sum over its shards. Rounding on each device would
+    round each device's gradient before the sum."""
+    if cfg.compute_dtype != "bfloat16":
+        return params
+    return {"w_rounded": [_operand(w, True) for w in params["w"]], "b": params["b"]}
+
+
 def mlp_apply_t(params: dict, x_t: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
-    """Transposed MLP: x_t (in_dim, N) -> (out_dim, N)."""
+    """Transposed MLP: x_t (in_dim, N) -> (out_dim, N). ``params`` holds
+    ``"w"``, or ``"w_rounded"`` from :func:`round_weights`."""
     act = _ACTS[cfg.activation]
     bf16 = cfg.compute_dtype == "bfloat16"
+    rounded = "w_rounded" in params
+    ws = params["w_rounded"] if rounded else params["w"]
     h = x_t
-    n = len(params["w"])
-    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
-        h = _operand(w.T, bf16) @ _operand(h, bf16) + b[:, None]
+    n = len(ws)
+    for i, (w, b) in enumerate(zip(ws, params["b"])):
+        h = (w.T if rounded else _operand(w.T, bf16)) @ _operand(h, bf16) + b[:, None]
         if i < n - 1:
             h = act(h)
     return h

@@ -66,7 +66,9 @@ def test_every_module_imports_without_jax():
     assert {"loner_tpu_torch.models.hash_encoding", "loner_tpu_torch.ops.hash_encode_fast",
             "loner_tpu_torch.ops.cell_hash", "loner_tpu_torch.data.rosbag_convert",
             "loner_tpu_torch.runtime.native", "loner_tpu_torch.parallel.sharding", "loner_tpu_torch.parallel.tp",
-            "loner_tpu_torch.parallel.submaps_parallel", "loner_tpu_torch.multichip"} <= set(MODULES)
+            "loner_tpu_torch.parallel.submaps_parallel", "loner_tpu_torch.multichip",
+            "loner_tpu_torch.experiments.exp_encoder_flagship",
+            "loner_tpu_torch.experiments.exp_quality_flagship"} <= set(MODULES)
 
 
 def test_sources_never_name_jax_or_the_jax_package():
@@ -117,6 +119,15 @@ def test_entry_points_default_to_the_card():
                  lambda: bench.main([]), lambda: load_run("no_such_run"), lambda: topt.make_render_fn(cfg),
                  lambda: topt.make_debug_probe(cfg, cube),
                  lambda: run_slam.run_trial(None, None, "unused", False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # the quality experiments, their CPU forms' flags but the card
+    from loner_tpu_torch.experiments import exp_encoder_flagship, exp_quality_flagship
+
+    for make in (lambda: exp_encoder_flagship.main(["--small"]), lambda: exp_quality_flagship.main(["--small"]),
+                 lambda: exp_encoder_flagship.run_encoder(None, None, [], None, "cuda"),
+                 lambda: exp_quality_flagship.run_online("unused", device="cuda"),
+                 lambda: exp_quality_flagship.run_offline(small=True)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     # the mesh's entry points
