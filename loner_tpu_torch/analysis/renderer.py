@@ -59,6 +59,13 @@ def _render_chunked(cfg: MapperConfig, state, dirs: np.ndarray, pose: np.ndarray
     return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
 
 
+def lidar_rays(cfg: MapperConfig, cube, dirs: torch.Tensor, pose: torch.Tensor):
+    """The rays :func:`render_lidar_scan` renders: sensor-frame directions
+    ``dirs`` (N, 3) at ``pose`` (4, 4, metric world_T_lidar), on their
+    device, with ``cube`` there."""
+    return build_lidar_rays(dirs, torch.zeros(dirs.shape[0], device=dirs.device), pose, cube, cfg.ray_range)
+
+
 def render_lidar_scan(cfg: MapperConfig, cube, state, pose: np.ndarray, n_channels: int = 32, n_azimuth: int = 512,
                       vfov_deg: Tuple[float, float] = (-22.5, 22.5), var_threshold: Optional[float] = 1e-2,
                       chunk: int = 16384, u_pdf: Optional[torch.Tensor] = None,
@@ -70,11 +77,8 @@ def render_lidar_scan(cfg: MapperConfig, cube, state, pose: np.ndarray, n_channe
     the sensor-frame ``directions``."""
     dirs = synthetic.spinning_lidar_directions(n_channels, n_azimuth, vfov_deg)
     cube_d = cube.to(state.poses.device)
-
-    def build(d, p):
-        return build_lidar_rays(d, torch.zeros(d.shape[0], device=d.device), p, cube_d, cfg.ray_range)
-
-    out = _render_chunked(cfg, state, dirs, pose, build, chunk, u_pdf, generator)
+    out = _render_chunked(cfg, state, dirs, pose, lambda d, p: lidar_rays(cfg, cube_d, d, p), chunk, u_pdf,
+                          generator)
     scale = cfg.world_scale
     depth_m = out["depth"] * scale
     keep = np.ones(len(dirs), bool)

@@ -417,6 +417,18 @@ def _shard_u_enc(u: Optional[torch.Tensor], p0: int, n_pts: int, n_total: int) -
     return u[:, (p0 + torch.arange(n_pts, device=u.device)) % u.shape[-1]]
 
 
+def _window_chunks(p0: int, n_pts: int, chunk: int) -> list:
+    """A shard's points [p0, p0 + n_pts) of the window split at the
+    window's point chunks (``chunk`` points each): ``[(chunk index,
+    points)]`` in order."""
+    out, p = [], p0
+    while p < p0 + n_pts:
+        end = min((p // chunk + 1) * chunk, p0 + n_pts)
+        out.append((p // chunk, end - p))
+        p = end
+    return out
+
+
 def _join(parts, device):
     """One bundle or render from the shards' (keyframe order), on
     ``device``: each per-ray field concatenated on the ray axis; a render's
@@ -455,11 +467,14 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
     row. Each row builds its block's rays, samples and renders on its
     compute device; the loss runs once, on the first device, over the rows'
     per-ray outputs in keyframe order, and the gradients of every row's
-    copy of a parameter arrive summed at the parameter; with several rows a
-    bf16 MLP's weights round to bf16 on the first device before the copies,
-    so that their gradient rounds once, after the sum (as the JAX package's
-    sharded step rounds it). The draws (one set for the whole window, drawn
-    on the first device) go to each row as its slice."""
+    copy of a parameter arrive summed at the parameter. Each row's points go
+    to the field split at the window's point chunks (``train_point_chunks``);
+    with several rows a bf16 MLP's weights round to bf16 on the first
+    device before the copies, once for each chunk: chunk c's weight
+    gradient sums over the rows that hold its points and rounds once, and
+    the chunks' gradients add in f32 (as the single step and the JAX
+    package's sharded step round it). The draws (one set for the whole
+    window, drawn on the first device) go to each row as its slice."""
     rows = [tuple(torch.device(d) for d in r) for r in rows]
     dev = rows[0][0]
     if cfg.samples_strategy not in _SAMPLES_STRATEGIES:
@@ -477,14 +492,16 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
     # (points arrive flattened (rays, S))
     cfg = cfg._replace(nerf=cfg.nerf._replace(encoding_slot_period=n_samples))
 
-    def render_shard(params, poses, occ_grid, window, draws: StepDraws, ray_idx, cube_d):
+    def render_shard(chunk_params, point_chunks, poses, occ_grid, window, draws: StepDraws, ray_idx, cube_d):
+        """The render of one row's block, its field in chunks of the lengths
+        ``point_chunks`` lists, chunk c's with ``chunk_params[c]``."""
         bundle = build_window_rays(poses, window, cube_d, cfg, ray_idx, draws.sky_idx)
         if cfg.samples_strategy == "OGM":
             z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, cfg.perturb, draws.u_strat,
                                                       draws.u_pdf)
         else:
             z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, cfg.perturb, draws.u_strat)
-        render = render_rays(params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=cfg.train_point_chunks,
+        render = render_rays(chunk_params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=point_chunks,
                              enc_u=draws.u_enc)
         return render, bundle
 
@@ -495,8 +512,13 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
         w = window.window_size
         devs = [r[0] for r in rows] if w % len(rows) == 0 else [dev]
         sigma = params["sigma"]
-        if len(devs) > 1:  # a bf16 MLP's weight gradient rounds once, after the rows' sum
-            sigma = {**sigma, "mlp": round_weights(sigma["mlp"], cfg.nerf.sigma_mlp_config())}
+        n_total = w * per_kf * n_samples
+        chunk = chunk_points(n_total, cfg.train_point_chunks)
+        # each row's points go to the field split at the window's chunks; with
+        # several rows chunk c takes copy c of a bf16 MLP's weights, rounded here,
+        # so that its weight gradient sums over the rows and rounds once
+        mlps = [round_weights(sigma["mlp"], cfg.nerf.sigma_mlp_config()) if len(devs) > 1 else sigma["mlp"]
+                for _ in range(n_total // chunk)]
         shards = []
         for row, (k0, k1, d_window) in zip(rows, split_window(window, devs)):
             d = row[0]
@@ -508,8 +530,11 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
                 u_enc=_slice(_shard_u_enc(draws.u_enc, r0 * n_samples, (r1 - r0) * n_samples, w * per_kf * n_samples),
                              0, None, d),
             )
-            render, bundle = render_shard({"sigma": _place(sigma, row)}, poses.to(d), occ_grid.to(d),
-                                          d_window, d_draws, _slice(ray_idx, k0, k1, d), cubes[d])
+            placed = _place(sigma, row)
+            segments = _window_chunks(r0 * n_samples, (r1 - r0) * n_samples, chunk)
+            render, bundle = render_shard(
+                [{"sigma": {**placed, "mlp": _place(mlps[c], row)}} for c, _ in segments], [m for _, m in segments],
+                poses.to(d), occ_grid.to(d), d_window, d_draws, _slice(ray_idx, k0, k1, d), cubes[d])
             shards.append((render, bundle, d_draws))
         render = _join([s[0] for s in shards], dev)
         bundle = _join([s[1] for s in shards], dev)

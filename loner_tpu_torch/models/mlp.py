@@ -56,7 +56,9 @@ def round_weights(params: dict, cfg: MLPConfig) -> dict:
     gradient comes back through its copy, the copies' gradients sum in f32,
     and the sum rounds to bf16 once, as XLA rounds a replicated weight's
     gradient after the sum over its shards. Rounding on each device would
-    round each device's gradient before the sum."""
+    round each device's gradient before the sum. A field in point chunks
+    takes one call's copy per chunk, so that each chunk's gradient rounds
+    once, as the single pass rounds it."""
     if cfg.compute_dtype != "bfloat16":
         return params
     return {"w_rounded": [_operand(w, True) for w in params["w"]], "b": params["b"]}

@@ -10,7 +10,7 @@ alone (``sigma_only``, the lidar step) or both branches (the camera step).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -146,20 +146,26 @@ def chunk_points(n: int, n_chunks: int) -> int:
     return n if n_chunks <= 1 or n % n_chunks != 0 else n // n_chunks
 
 
-def _chunked(fn, x_t: torch.Tensor, n_chunks: int, u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``fn(chunk, u)`` over the last axis of ``x_t`` in ``n_chunks``
-    sequential chunks when that divides it (else in one), the results
-    concatenated on it. ``u`` is one block shared by every chunk, or one
-    column per point, chunked with the points."""
+def _chunked(fn, x_t: torch.Tensor, n_chunks: Union[int, list], u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fn(chunk, u, c)``, ``c`` the chunk's index, over the last axis of
+    ``x_t`` in sequential chunks, the results concatenated on it:
+    ``n_chunks`` equal ones when that divides it (else one), or, where
+    ``n_chunks`` is a list, chunks of the lengths it lists. ``u`` is one
+    block shared by every chunk, or one column per point, chunked with the
+    points."""
     n = x_t.shape[-1]
-    if chunk_points(n, n_chunks) == n:
-        return fn(x_t, u)
-    us = u.chunk(n_chunks, dim=-1) if u is not None and u.shape[-1] == n else [u] * n_chunks
-    return torch.cat([fn(c, uc) for c, uc in zip(x_t.chunk(n_chunks, dim=-1), us)], dim=-1)
+    if isinstance(n_chunks, int):
+        c = chunk_points(n, n_chunks)
+        n_chunks = [n] if c == n else [c] * (n // c)
+    if len(n_chunks) == 1:
+        return fn(x_t, u, 0)
+    us = u.split(n_chunks, dim=-1) if u is not None and u.shape[-1] == n else [u] * len(n_chunks)
+    return torch.cat([fn(x, uc, c) for c, (x, uc) in enumerate(zip(x_t.split(n_chunks, dim=-1), us))], dim=-1)
 
 
-def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
-                key: Optional[torch.Tensor] = None, point_chunks: Optional[int] = None, sigma_only: bool = True,
+def render_rays(params: Union[dict, list], bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
+                key: Optional[torch.Tensor] = None, point_chunks: Union[int, list, None] = None,
+                sigma_only: bool = True,
                 detach_sigma: bool = True, key_intensity: Optional[torch.Tensor] = None,
                 render_strategy: str = "default", enc_u: Optional[torch.Tensor] = None,
                 enc_u_intensity: Optional[torch.Tensor] = None) -> RenderResult:
@@ -170,7 +176,9 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
     branches with the view directions repeated over the samples, the sigma
     branch without gradients when ``detach_sigma``. The points go to the
     field in ``point_chunks`` (``cfg.point_chunks`` when None) sequential
-    chunks when that divides them, else in one. ``key`` and
+    chunks when that divides them, else in one, or in chunks of the
+    lengths ``point_chunks`` lists; ``params`` may list each chunk's
+    parameters. ``key`` and
     ``key_intensity`` draw the encoders' stochastic table gradients;
     ``enc_u`` and ``enc_u_intensity`` (L, points per chunk) are the "cell"
     encoders' corner uniforms, one block shared by every chunk, as the JAX
@@ -184,14 +192,18 @@ def render_rays(params: dict, bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
         point_chunks = cfg.point_chunks
     pts_t = bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z_vals[None]  # (3, N, S)
     flat = pts_t.reshape(3, n * s)
+
+    def params_of(c):
+        return params[c] if isinstance(params, list) else params
+
     if sigma_only:
-        raw_t = _chunked(lambda p, u: query_sigma_t(params, p, cfg, key, u), flat, point_chunks,
+        raw_t = _chunked(lambda p, u, c: query_sigma_t(params_of(c), p, cfg, key, u), flat, point_chunks,
                          enc_u).reshape(1, n, s)
     else:
         dirs_t = bundle.viewdirs.T[:, :, None].expand(3, n, s).reshape(3, n * s)
         raw_t = _chunked(
-            lambda x, _: query_nerf_t(params, x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity, enc_u,
-                                      enc_u_intensity),
+            lambda x, _, c: query_nerf_t(params_of(c), x[:3], x[3:], cfg, False, detach_sigma, key, key_intensity,
+                                         enc_u, enc_u_intensity),
             torch.cat([flat, dirs_t]), point_chunks,
         ).reshape(-1, n, s)
     rgb, depth, weights, opacity, variance = _STRATEGIES[render_strategy](

@@ -177,9 +177,10 @@ def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
     )
 
 
-def jax_loss_and_grads(cfg, cube, state, window, key, pose_grads):
+def jax_loss_and_grads(cfg, cube, state, window, key, pose_grads, point_chunks=1):
     """The loss and gradients of ``make_train_step_body``'s forward (which
-    the JAX step does not return), by the same calls with the same keys."""
+    the JAX step does not return), by the same calls with the same keys,
+    the field in ``point_chunks`` chunks (one pass by default)."""
     from loner_tpu.models import losses as jlosses
     from loner_tpu.models import rendering as jrender
     from loner_tpu.models import sampling as jsampling
@@ -189,7 +190,8 @@ def jax_loss_and_grads(cfg, cube, state, window, key, pose_grads):
     def fwd(params, poses):
         bundle = jopt.build_window_rays(poses, window, cube, cfg, k_rays, 0)
         z = jsampling.occ_grid_sampler_z_vals(k_samp, bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb)
-        render = jrender.render_rays(params, bundle, z, cfg.nerf, sigma_only=True, key=k_enc, point_chunks=1)
+        render = jrender.render_rays(params, bundle, z, cfg.nerf, sigma_only=True, key=k_enc,
+                                     point_chunks=point_chunks)
         loss, _ = jlosses.compute_lidar_loss(
             render, bundle, cfg.world_scale, cfg.loss, state.global_step.astype(jnp.float32), jnp.float32(0.0)
         )
