@@ -1998,13 +1998,20 @@ def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
     config (16 levels x 2 features, 2^18 vertices; CellHash 2^16 cells) on
     one keyframe's sampled points (576 rays x 512 samples), the same O(1)
     table, cotangent and corner uniforms on the card and the CPU: the forward
-    within 1e-6 and the point gradient within 1e-5 of their largest entry;
-    the table gradient, summed by atomics on the card in a varying order
-    (up to thousands of terms an entry at the coarse levels), within 1e-5
-    normwise (its largest error against its largest entry, which reaches
-    1e-5, is reported). The tied (level, point)
-    pairs of a corner-sampled mode get a zero cotangent on both devices.
-    The card's fwd + bwd ms of each mode beside."""
+    within 1e-6 and the point gradient within 1e-5 of their largest entry,
+    against the f32 CPU run. The table gradient sums up to thousands of
+    terms an entry at the coarse levels: by atomics in a varying order on
+    the card, by f32 scatter-adds on the CPU. It is held within 1e-5
+    normwise against the same terms (corner weights x cotangent, at the
+    same indices) summed in float64 on the CPU (the encoder run on a
+    float64 table: its points, so its indices and weights, stay f32), and
+    against the f32 CPU run: on these points the card's own f32 sum lands
+    about as far from float64 as the CPU's, so the float64 reference alone
+    would not widen the margin. Each is reported normwise and as its
+    largest error against the largest entry, beside the f32 CPU's distance
+    from float64. The tied (level, point) pairs of a corner-sampled mode get
+    a zero cotangent on every run. The card's fwd + bwd ms of each mode
+    beside."""
     from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode_t
     from loner_tpu_torch.models.nerf import cell_config_from
     from loner_tpu_torch.ops import cell_hash as ch
@@ -2025,6 +2032,9 @@ def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
         scaled = p * torch.as_tensor(c_l1.level_scales().astype("float32"))[choice][None] + 0.5
         return _corner_ties(ch._trilinear_w(scaled - torch.floor(scaled))[None], u[:1])
 
+    def shares(a, b):  # (normwise, largest error / largest entry) of a against b
+        return _rel(a, b), float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
     modes = {  # name -> (table, encode(table, pts, u), tied (L, N) pairs or (1, N) points, or None)
         "exact": (hash_table, lambda t, p, u: hash_encode_t(t, p, enc), None),
         "packed": (hash_table, lambda t, p, u: hf.hash_encode_packed_t(t, p, enc), None),
@@ -2041,9 +2051,15 @@ def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
         if ties is not None:
             g = torch.where(ties[:, None, :], torch.zeros(()), g)
         g = g.reshape(2 * l, n)
+        # the float64 sum of the table gradient's terms, on the CPU
+        t64 = table.double().requires_grad_(True)
+        torch.sum(fn(t64, pts_cpu, u) * g).backward()
+        d_table64 = t64.grad
+        del t64
         # the CPU once; the card three times (its scatters' atomics sum in
         # a varying order): the largest error of the three is held
         errs = {"forward": 0.0, "d_table": 0.0, "d_pts": 0.0, "d_table_normwise": 0.0}
+        vs64 = {"card_normwise": 0.0, "card": 0.0}
         ref = None
         for d in (torch.device("cpu"), dev, dev, dev):
             t = table.to(d).clone().requires_grad_(True)
@@ -2054,11 +2070,14 @@ def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
             del t, p, out
             if ref is None:
                 ref = got
+                vs64["cpu_f32_normwise"], vs64["cpu_f32"] = shares(got[1], d_table64)
                 continue
             for k, a, b in zip(errs, got, ref):
                 errs[k] = max(errs[k], float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
             errs["d_table_normwise"] = max(errs["d_table_normwise"], _rel(got[1], ref[1]))
-        del ref, got
+            vs64 = {**vs64, **{k: max(vs64[k], x) for k, x in zip(("card_normwise", "card"),
+                                                                   shares(got[1], d_table64))}}
+        del ref, got, d_table64
         t_card, p_card = table.to(dev).clone().requires_grad_(True), pts.detach().clone().requires_grad_(True)
         g_card, u_card = g.to(dev), u.to(dev)
 
@@ -2066,14 +2085,20 @@ def _encoders_card_vs_cpu(pts: torch.Tensor) -> dict:
             torch.sum(fn(t_card, p_card, u_card) * g_card).backward()
 
         ms = _event_ms(fwd_bwd, 3, 1)
-        rows[name] = {"max_err_share": errs, "tied": 0 if ties is None else int(ties.sum()), "card_fwd_bwd_ms": ms,
-                      "ok": errs["forward"] <= 1e-6 and errs["d_table_normwise"] <= 1e-5 and errs["d_pts"] <= 1e-5}
+        rows[name] = {"max_err_share": errs, "d_table_vs_float64": vs64,
+                      "tied": 0 if ties is None else int(ties.sum()), "card_fwd_bwd_ms": ms,
+                      "ok": errs["forward"] <= 1e-6 and vs64["card_normwise"] <= 1e-5
+                      and errs["d_table_normwise"] <= 1e-5 and errs["d_pts"] <= 1e-5}
         del t_card, p_card, g_card, u_card
         torch.cuda.empty_cache()
-    print("leg 3h, the encoders on the card against the CPU (" + f"{n} points; max abs error / largest entry, "
-          "d_table also normwise): "
-          + "; ".join(f"{k}: fwd {r['max_err_share']['forward']:.2e}, d_table {r['max_err_share']['d_table']:.2e} "
-                      f"({r['max_err_share']['d_table_normwise']:.2e} normwise), "
+    print("leg 3h, the encoders on the card against the CPU (" + f"{n} points; max abs error / largest entry; "
+          "d_table normwise (of largest): card against its float64 sum / f32 CPU against it, and card "
+          "against the f32 CPU, the card held at 1e-5 against both): "
+          + "; ".join(f"{k}: fwd {r['max_err_share']['forward']:.2e}, d_table "
+                      f"{r['d_table_vs_float64']['card_normwise']:.2e} ({r['d_table_vs_float64']['card']:.2e}) / "
+                      f"{r['d_table_vs_float64']['cpu_f32_normwise']:.2e} ({r['d_table_vs_float64']['cpu_f32']:.2e}), "
+                      f"card vs f32 CPU {r['max_err_share']['d_table_normwise']:.2e} "
+                      f"({r['max_err_share']['d_table']:.2e}), "
                       f"d_pts {r['max_err_share']['d_pts']:.2e}, tied {r['tied']}, fwd+bwd "
                       f"{r['card_fwd_bwd_ms']:.2f} ms" for k, r in rows.items()), flush=True)
     bad = {k: r for k, r in rows.items() if not r["ok"]}

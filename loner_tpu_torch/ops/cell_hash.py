@@ -164,19 +164,20 @@ def _cell_rows(w: torch.Tensor, g_l: torch.Tensor) -> torch.Tensor:
 def _cell_bwd(cfg: CellHashConfig, idx: torch.Tensor, v: torch.Tensor, pts_t: torch.Tensor, g: torch.Tensor,
               u: Optional[torch.Tensor], slab_rows, need_pts: bool):
     """(the slabs' table gradients, d_pts (3, N)) from the cotangent g
-    (L*2, N). ``slab_rows`` lists each slab's (device, rows, needs a
+    (L*2, N). ``slab_rows`` lists each slab's (device, rows, dtype, needs a
     gradient?); slab m's gradient (L, rows, 16) is built on its own device
-    from the rows it owns (None where it needs none), with the same
-    uniforms ``u`` (L, N) on every slab: one corner sampled per scattered
-    row."""
+    from the rows it owns (None where it needs none), summed in the slab's
+    dtype (a float64 slab sums the same f32 terms in float64), with the
+    same uniforms ``u`` (L, N) on every slab: one corner sampled per
+    scattered row."""
     l, n = idx.shape
     g = g.reshape(l, 2, n)
     scales, resolutions = cfg.level_scales(), cfg.level_resolutions()
     t = cfg.table_size
     level1 = cfg.bwd == "level1"
     d_slabs, slabs, row0 = [], [], 0  # slabs: (device, row0, rows, gradient) of each that needs one
-    for dev, rows, need in slab_rows:
-        d_slabs.append(torch.zeros((l, rows, 16), dtype=torch.float32, device=dev) if need else None)
+    for dev, rows, dtype, need in slab_rows:
+        d_slabs.append(torch.zeros((l, rows, 16), dtype=dtype, device=dev) if need else None)
         if need:
             slabs.append((dev, row0, rows, d_slabs[-1]))
         row0 += rows
@@ -193,7 +194,7 @@ def _cell_bwd(cfg: CellHashConfig, idx: torch.Tensor, v: torch.Tensor, pts_t: to
             w = w_sel.to(dev)
             if u is not None:
                 w = _corner_sample_w(w, u[0].to(dev))
-            upd = _cell_rows(w, g_sel.to(dev)) * float(l)
+            upd = (_cell_rows(w, g_sel.to(dev)) * float(l)).to(d.dtype)
             local = idx_sel.to(dev)
             if rows != t:  # the combined index counts this slab's rows
                 local, own = _own_rows(local, r0, rows)
@@ -210,7 +211,7 @@ def _cell_bwd(cfg: CellHashConfig, idx: torch.Tensor, v: torch.Tensor, pts_t: to
                 w = _trilinear_w(frac.to(dev))
                 if u is not None:
                     w = _corner_sample_w(w, u[lvl].to(dev))
-                _scatter_rows(d[lvl], idx[lvl].to(dev), _cell_rows(w, g[lvl].to(dev)), r0, t)
+                _scatter_rows(d[lvl], idx[lvl].to(dev), _cell_rows(w, g[lvl].to(dev)).to(d.dtype), r0, t)
         if need_pts:
             pc = v[lvl, :, 0::2].float().T * g[lvl, 0][None, :] + v[lvl, :, 1::2].float().T * g[lvl, 1][None, :]
             d_pts = d_pts + _dfrac(pc, frac, corner_f, sign) * f32_scale(scales[lvl])
@@ -225,7 +226,7 @@ class _CellEncode(torch.autograd.Function):
     def forward(ctx, pts_t, cfg, sample, key, u, *slabs):
         out, idx, v = _cell_fwd(slabs, pts_t, cfg)
         ctx.cfg, ctx.sample = cfg, sample
-        ctx.slab_rows = [(s.device, s.shape[1]) for s in slabs]
+        ctx.slab_rows = [(s.device, s.shape[1], s.dtype) for s in slabs]
         ctx.save_for_backward(idx, v, pts_t, key, u)
         return out
 
@@ -236,7 +237,7 @@ class _CellEncode(torch.autograd.Function):
         if ctx.sample and u is None and any(need):  # drawn once, on the points' device, for every slab
             u = uniforms_from_key(key, tuple(idx.shape), g.device)
         d_slabs, d_pts = _cell_bwd(ctx.cfg, idx, v, pts_t, g.contiguous(), u if ctx.sample else None,
-                                   [(dev, rows, nd) for (dev, rows), nd in zip(ctx.slab_rows, need)],
+                                   [(*slab, nd) for slab, nd in zip(ctx.slab_rows, need)],
                                    ctx.needs_input_grad[0])
         return (d_pts, None, None, None, None, *d_slabs)
 

@@ -9,7 +9,8 @@ pair into one 32-bit word; here the pairs are a ``(L*T, 2)`` bf16 table,
 the same numbers) from one flat table with level-offset indices, and sums
 in f32. The backward never gathers again:
 
-  * d_table is the straight-through f32 scatter-add of (trilinear weight x
+  * d_table is the straight-through scatter-add, in the table's dtype (f32;
+    a float64 table sums the same terms in float64), of (trilinear weight x
     cotangent) over all 8 corners, or, with corner sampling, of the
     cotangent alone into ONE corner per (level, point) drawn in proportion
     to its weight (unbiased, 8x fewer scatter rows);
@@ -82,9 +83,9 @@ def _fwd(table: torch.Tensor, pts_t: torch.Tensor, cfg: HashEncodingConfig):
 
 
 def _bwd(cfg: HashEncodingConfig, idx, w, v, pts_t, g, u: Optional[torch.Tensor], need_table: bool,
-         need_pts: bool):
-    """(d_table (L, 2, T), d_pts (3, N)) from the cotangent g (L*2, N); a
-    ``u`` (L, N) samples one corner per (level, point)."""
+         need_pts: bool, dtype: torch.dtype = torch.float32):
+    """(d_table (L, 2, T) of ``dtype``, d_pts (3, N)) from the cotangent g
+    (L*2, N); a ``u`` (L, N) samples one corner per (level, point)."""
     l, c, n = idx.shape
     g = g.reshape(l, 2, n)
     d_table = d_pts = None
@@ -99,8 +100,8 @@ def _bwd(cfg: HashEncodingConfig, idx, w, v, pts_t, g, u: Optional[torch.Tensor]
             upd0 = (w * g[:, 0][:, None, :]).reshape(-1)
             upd1 = (w * g[:, 1][:, None, :]).reshape(-1)
         size = l * cfg.table_size
-        d0 = torch.zeros(size, dtype=torch.float32, device=g.device).index_add_(0, flat_idx, upd0)
-        d1 = torch.zeros(size, dtype=torch.float32, device=g.device).index_add_(0, flat_idx, upd1)
+        d0 = torch.zeros(size, dtype=dtype, device=g.device).index_add_(0, flat_idx, upd0.to(dtype))
+        d1 = torch.zeros(size, dtype=dtype, device=g.device).index_add_(0, flat_idx, upd1.to(dtype))
         d_table = torch.stack([d0.reshape(l, cfg.table_size), d1.reshape(l, cfg.table_size)], dim=1)
     if need_pts:
         scales = cfg.level_scales()
@@ -129,7 +130,7 @@ class _PackedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, pts_t, cfg, sample, key, u):
         out, idx, w, v = _fwd(table, pts_t, cfg)
-        ctx.cfg, ctx.sample = cfg, sample
+        ctx.cfg, ctx.sample, ctx.table_dtype = cfg, sample, table.dtype
         ctx.save_for_backward(idx, w, v, pts_t, key, u)
         return out
 
@@ -139,7 +140,7 @@ class _PackedEncode(torch.autograd.Function):
         if ctx.sample and u is None and ctx.needs_input_grad[0]:
             u = uniforms_from_key(key, (idx.shape[0], idx.shape[2]), g.device)
         d_table, d_pts = _bwd(ctx.cfg, idx, w, v, pts_t, g.contiguous(), u if ctx.sample else None,
-                              ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+                              ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.table_dtype)
         return d_table, d_pts, None, None, None, None
 
 

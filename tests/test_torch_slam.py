@@ -242,19 +242,6 @@ def _schedules():
             for cls in (jmapper, tmapper)]
 
 
-def replayed_jax_draws(jcfg, seed: int):
-    """``step_draws`` for the port's mapper: each call splits the JAX
-    mapper's key chain (``PRNGKey(seed + 1)``) as its loop does and returns
-    the numbers the JAX step draws from the sub-key."""
-    key = [jax.random.PRNGKey(seed + 1)]
-
-    def draws(window):
-        key[0], sub = jax.random.split(key[0])
-        return tp.torch_draws(tp.jax_step_draws(sub, jcfg, window))
-
-    return draws
-
-
 def replayed_jax_fixed_draws(jcfg, seed: int, n_per_phase: int):
     """``step_draws`` under FIXED: each phase of ``n_per_phase`` steps splits
     the JAX mapper's key chain once, and every step of the phase draws from
@@ -284,7 +271,7 @@ def _mapper_pair(tmp_path, rays_strategy="RANDOM"):
     tcube = compute_world_cube(poses, ray_range=tp.RAY_RANGE, rebase_to_first_pose=False)
     jcfg, tcfg = tp.mapper_configs(float(jcube.scale_factor))
     jcfg, tcfg = (c._replace(occ=c.occ._replace(n_iters_acc=2), rays_strategy=rays_strategy) for c in (jcfg, tcfg))
-    draws = (replayed_jax_draws(jcfg, 0) if rays_strategy != "FIXED"
+    draws = (tp.replayed_jax_draws(jcfg, 0) if rays_strategy != "FIXED"
              else replayed_jax_fixed_draws(jcfg, 0, tp.SCAN["pad_to"] // tcfg.rays_per_kf))
     (jsched, tsched) = _schedules()
     kw = dict(n_sky_pad=tp.SCAN["n_sky"], log_level="DISABLED", log_losses=True)
@@ -358,6 +345,73 @@ def test_fixed_online_mapper_matches_jax(tmp_path):
     assert int(tm.state.global_step) == int(jm.state.global_step) == 16
     assert int(tm.state.skipped_steps) == 0
     _assert_mappers_agree(tmp_path, jm, tm, tcfg, published)
+
+
+LAP_FRAMES = (0, 16, 32)  # the first three keyframes of the 1.5 s lap: 0, 1.6 and 3.2 s
+LAP_ERRORS_M = (0.0, 0.17, 0.32)
+LAP_SCHEDULE = dict(first=60, later=25)
+# the largest final pose difference measured (f32, these sizes, one thread): 4.8e-7
+LAP_POSE_BOUND = 2e-6
+
+
+def test_online_mapper_long_horizon_matches_jax(tmp_path):
+    """The long-horizon form of ``test_online_mapper_matches_jax``, the
+    collected counterpart of tests/compare_mapper_lap.py: three keyframes of
+    the quality experiment's lap at 1.5 s spacing (radius 5 m, 12.6 s) at
+    the small sizes, window 3, tracked with errors of 0, 0.17 and 0.32 m
+    (and a yaw of length / 5 m rad), 60 pose-frozen steps then 25 joint
+    steps a keyframe with the occupancy update every 10th step, f32, from
+    the JAX mapper's initial state and with its draws: every step's loss
+    within 1e-5 (relative), the final poses within ``LAP_POSE_BOUND``, and
+    each keyframe's refined error on the same side of 0.05 m in both
+    packages; the joint steps moved the poses."""
+    import compare_mapper_lap as lap
+
+    scene = tp.jsyn.Scene.default()
+    poses, ts = tp.jsyn.circular_trajectory(n_poses=126, radius=5.0, period=12.6)
+    poses, ts = np.asarray(poses, np.float64), np.asarray(ts)
+    jcube = j_compute_world_cube(poses, ray_range=tp.RAY_RANGE)
+    tcube = compute_world_cube(poses, ray_range=tp.RAY_RANGE)
+    jcfg, tcfg = tp.mapper_configs(float(jcube.scale_factor), window_size=3)
+    schedules = [(cls.SchedulePhase(1, [cls.IterationPhase(LAP_SCHEDULE["first"], freeze_poses=True)]),
+                  cls.SchedulePhase(-1, [cls.IterationPhase(LAP_SCHEDULE["later"], freeze_poses=False)]))
+                 for cls in (jmapper, tmapper)]
+    kw = dict(n_sky_pad=tp.SCAN["n_sky"], log_level="DISABLED", log_losses=True)
+    kfm = dict(time_diff_seconds=1.5, window_size=3)
+    jm = jmapper.OnlineMapper(jmapper.OnlineMapperConfig(
+        mapper=jcfg, keyframe_manager=jkfm.KeyFrameManagerConfig(**kfm), schedule=list(schedules[0]),
+        loss_log_dir=str(tmp_path / "j"), **kw), jcube)
+    tm = tmapper.OnlineMapper(tmapper.OnlineMapperConfig(
+        mapper=tcfg, keyframe_manager=tkfm.KeyFrameManagerConfig(**kfm), schedule=list(schedules[1]),
+        loss_log_dir=str(tmp_path / "t"), **kw), tcube, device="cpu", step_draws=tp.replayed_jax_draws(jcfg, 0))
+    tm.state = state_from_jax(tp.np_tree(jm.state), device="cpu")
+
+    gt = np.linalg.inv(poses[0])[None] @ poses[list(LAP_FRAMES)]
+    tracked = lap.tracked_poses(gt, 0, LAP_ERRORS_M)
+    inserted = []
+    for i, T, G in zip(LAP_FRAMES, tracked, gt):
+        dirs, dists, stamps, hit = tp.jsyn.simulate_scan(scene, poses[i], ts[i], n_channels=tp.SCAN["n_channels"],
+                                                         n_azimuth=tp.SCAN["n_azimuth"], max_range=40.0)
+        scan = tp.j_make_lidar_scan(dirs[hit], dists[hit], stamps[hit], pad_to=tp.SCAN["pad_to"])
+        sky = tp.j_sky_scan(dirs[~hit][: tp.SCAN["n_sky"]], 41.0, ts[i], pad_to=tp.SCAN["n_sky"])
+        assert jm.process_frame(scan, ts[i], T, gt_pose=G, sky=sky)
+        inserted.append(tm.kf_manager.rebase_pose(T, tm.state.poses.numpy()))
+        assert tm.process_frame(LidarScan(*scan), ts[i], T, gt_pose=G, sky=LidarScan(*sky))
+    assert tm._host_step == jm._host_step == LAP_SCHEDULE["first"] + 2 * LAP_SCHEDULE["later"]
+    assert int(tm.state.skipped_steps) == int(jm.state.skipped_steps) == 0
+
+    for kf in (1, 2, 3):
+        jl = np.loadtxt(tmp_path / "j" / f"keyframe_{kf}" / "phase_0.csv", delimiter=",", skiprows=1)
+        tl = np.loadtxt(tmp_path / "t" / f"keyframe_{kf}" / "phase_0.csv", delimiter=",", skiprows=1)
+        assert tl.shape == jl.shape
+        np.testing.assert_allclose(tl[:, :2], jl[:, :2], rtol=1e-5, err_msg=f"losses, keyframe {kf}")
+    jp, tpose = np.asarray(jm.state.poses)[:3], tm.state.poses.numpy()[:3]
+    np.testing.assert_allclose(tpose, jp, rtol=0, atol=LAP_POSE_BOUND)
+    moved = np.linalg.norm(tpose[1:, :3] - np.stack(inserted)[1:, :3, 3], axis=1)
+    assert moved.min() > 5 * tcfg.lr_pose, moved  # the joint steps refined the poses
+    err_j = np.linalg.norm(jp[:, :3] - gt[:, :3, 3], axis=1)
+    err_t = np.linalg.norm(tpose[:, :3] - gt[:, :3, 3], axis=1)
+    np.testing.assert_array_equal(err_t < 0.05, err_j < 0.05)
 
 
 # ---------------------------------------------------------------------------

@@ -177,6 +177,19 @@ def jax_step_draws(key, cfg, window, iteration: int = 0) -> dict:
     )
 
 
+def replayed_jax_draws(jcfg, seed: int):
+    """``step_draws`` for the port's mapper: each call splits the JAX
+    mapper's key chain (``PRNGKey(seed + 1)``) as its loop does and returns
+    the numbers the JAX step draws from the sub-key."""
+    key = [jax.random.PRNGKey(seed + 1)]
+
+    def draws(window):
+        key[0], sub = jax.random.split(key[0])
+        return torch_draws(jax_step_draws(sub, jcfg, window))
+
+    return draws
+
+
 def jax_loss_and_grads(cfg, cube, state, window, key, pose_grads, point_chunks=1):
     """The loss and gradients of ``make_train_step_body``'s forward (which
     the JAX step does not return), by the same calls with the same keys,
