@@ -24,6 +24,7 @@ import torch
 from loner_tpu_torch.data import synthetic
 from loner_tpu_torch.geometry.rays import build_camera_rays, build_lidar_rays, camera_ray_directions
 from loner_tpu_torch.mapping.optimizer import MapperConfig, make_render_fn
+from loner_tpu_torch.runtime.profiling import span
 
 
 def _render_chunked(cfg: MapperConfig, state, dirs: np.ndarray, pose: np.ndarray, build_fn,
@@ -44,19 +45,21 @@ def _render_chunked(cfg: MapperConfig, state, dirs: np.ndarray, pose: np.ndarray
     keys = ["depth", "variance", "opacity"] + ["rgb"] * rgb + ["peak_depth"] * peak_consistency
     out = {k: [] for k in keys}
     for s in range(0, dirs_t.shape[0], chunk):
-        bundle = build_fn(dirs_t[s:s + chunk], pose_t)
-        u = None if u_pdf is None else u_pdf[s:s + chunk].to(dev)
-        r = render_fn(state.params, state.occ_grid, bundle, u_pdf=u, generator=generator)
-        out["depth"].append(r.depth)
-        out["variance"].append(r.variance)
-        out["opacity"].append(r.opacity)
-        if rgb:
-            out["rgb"].append(r.rgb)
-        if peak_consistency:
-            # large where the weights along the ray are multi-modal or diffuse
-            z_peak = torch.gather(r.z_vals, 1, torch.argmax(r.weights, dim=1, keepdim=True))[:, 0]
-            out["peak_depth"].append(torch.abs(z_peak - r.depth))
-    return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
+        with span("loner.render.chunk"):
+            bundle = build_fn(dirs_t[s:s + chunk], pose_t)
+            u = None if u_pdf is None else u_pdf[s:s + chunk].to(dev)
+            r = render_fn(state.params, state.occ_grid, bundle, u_pdf=u, generator=generator)
+            out["depth"].append(r.depth)
+            out["variance"].append(r.variance)
+            out["opacity"].append(r.opacity)
+            if rgb:
+                out["rgb"].append(r.rgb)
+            if peak_consistency:
+                # large where the weights along the ray are multi-modal or diffuse
+                z_peak = torch.gather(r.z_vals, 1, torch.argmax(r.weights, dim=1, keepdim=True))[:, 0]
+                out["peak_depth"].append(torch.abs(z_peak - r.depth))
+    with span("loner.render.readback"):
+        return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
 
 
 def lidar_rays(cfg: MapperConfig, cube, dirs: torch.Tensor, pose: torch.Tensor):

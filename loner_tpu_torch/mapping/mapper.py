@@ -39,7 +39,6 @@ keyframes over all of them.
 from __future__ import annotations
 
 import os
-import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
@@ -66,7 +65,7 @@ from loner_tpu_torch.mapping.optimizer import (
 from loner_tpu_torch.parallel.sharding import Mesh, make_sharded_train_step
 from loner_tpu_torch.runtime.checkpoints import save_checkpoint
 from loner_tpu_torch.runtime.debug_dump import DebugFlags
-from loner_tpu_torch.runtime.profiling import WindowTimer
+from loner_tpu_torch.runtime.profiling import WindowTimer, span
 
 
 @dataclass
@@ -202,8 +201,14 @@ class OnlineMapper:
         decision = self.kf_manager.decide(timestamp, tracked_pose)
         if decision == "SKIP":
             return False
-        t0 = time.time()
+        with span("loner.mapper.keyframe") as keyframe:
+            self._optimize(decision, scan, timestamp, tracked_pose, gt_pose, sky, use_gt_pose)
+        self.map_times.append((keyframe.t1_ns - keyframe.t0_ns) * 1e-9)
+        return True
 
+    def _optimize(self, decision: str, scan: LidarScan, timestamp: float, tracked_pose: np.ndarray,
+                  gt_pose: Optional[np.ndarray], sky: Optional[LidarScan], use_gt_pose: bool) -> None:
+        """``process_frame``'s work on a keyframe the gate let through."""
         if decision == "NEW":
             pose_init = (gt_pose if (use_gt_pose and gt_pose is not None)
                          else self.kf_manager.rebase_pose(tracked_pose, self.state.poses.cpu().numpy()))
@@ -214,7 +219,8 @@ class OnlineMapper:
             self._set_pose(kf.pose_index, pose_init)
 
         window_kfs = self.kf_manager.get_active_window()
-        window = stack_window(window_kfs, n_sky_pad=self.cfg.n_sky_pad, device=self.device)
+        with span("loner.mapper.stack_window"):
+            window = stack_window(window_kfs, n_sky_pad=self.cfg.n_sky_pad, device=self.device)
 
         self._opt_count += 1
         n_iters = 0
@@ -236,15 +242,17 @@ class OnlineMapper:
             for it in range(n_phase_iters):
                 occ = (self._host_step % n_acc) == n_acc - 1
                 self._host_step += 1
-                draws = (self._step_draws(window) if self._step_draws is not None
-                         else draw_step(self.cfg.mapper, window, self.generator, self.device, **held))
+                with span("loner.mapper.draws"):
+                    draws = (self._step_draws(window) if self._step_draws is not None
+                             else draw_step(self.cfg.mapper, window, self.generator, self.device, **held))
                 self.state, aux = self._train_step(self.state, window, flags._replace(do_occ_update=occ),
                                                    pose_mask, it, draws)
                 if self.cfg.log_losses:
                     loss_rows.append((phase_idx, it, {c: aux[c] for c in self._LOSS_COLS if c in aux}))
                 n_iters += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("loner.mapper.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         if loss_rows:
             self._write_loss_csvs(len(self.kf_manager), loss_rows)
         if self.cfg.debug.mapper_any:
@@ -254,14 +262,12 @@ class OnlineMapper:
         if self.cfg.camera.enabled:
             self._run_camera_phase(window_kfs)
 
-        poses_np = self.state.poses.cpu().numpy()
-        for cb in self.keyframe_update_callbacks:
-            for k in window_kfs:
-                cb(k.timestamp, k.tracked_pose, pose6_to_matrix(poses_np[k.pose_index]))
-
-        self._maybe_checkpoint()
-        self.map_times.append(time.time() - t0)
-        return True
+        with span("loner.mapper.readback"):
+            poses_np = self.state.poses.cpu().numpy()
+            for cb in self.keyframe_update_callbacks:
+                for k in window_kfs:
+                    cb(k.timestamp, k.tracked_pose, pose6_to_matrix(poses_np[k.pose_index]))
+            self._maybe_checkpoint()
 
     def _dump_debug_probe(self, window: KeyFrameWindow):
         """One probe pass over the window from fresh draws (``step_draws``'

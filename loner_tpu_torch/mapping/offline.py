@@ -37,6 +37,7 @@ from loner_tpu_torch.mapping.optimizer import (
     make_render_fn,
     make_train_step,
 )
+from loner_tpu_torch.runtime.profiling import span
 
 
 @dataclass
@@ -165,27 +166,31 @@ def optimize_implicit_map(
     best_l1 = float("inf")
     n_acc = cfg.occ.n_iters_acc
     for epoch in range(offline.max_epochs):
-        perm = rng.permutation(len(train_kfs))
-        losses = []
-        for w_start in range(0, len(perm), cfg.window_size):
-            sel = perm[w_start: w_start + cfg.window_size]
-            if len(sel) < cfg.window_size:  # wrap round: every window has W keyframes
-                sel = np.concatenate([sel, perm[: cfg.window_size - len(sel)]])
-            window = stack_window([train_kfs[i] for i in sel], n_sky_pad=n_sky_pad, device=dev)
-            for it in range(offline.iterations_per_window):
-                occ = (it_total % n_acc) == n_acc - 1
-                draws = step_draws(window) if step_draws is not None else None
-                result.state, aux = train_step(result.state, window, flags._replace(do_occ_update=occ),
-                                               pose_mask, it, draws)
-                losses.append(aux["loss"])
-                it_total += 1
-        result.losses += [float(x) for x in torch.stack(losses).cpu()]
+        with span("loner.offline.epoch"):
+            perm = rng.permutation(len(train_kfs))
+            losses = []
+            for w_start in range(0, len(perm), cfg.window_size):
+                sel = perm[w_start: w_start + cfg.window_size]
+                if len(sel) < cfg.window_size:  # wrap round: every window has W keyframes
+                    sel = np.concatenate([sel, perm[: cfg.window_size - len(sel)]])
+                with span("loner.offline.stack_window"):
+                    window = stack_window([train_kfs[i] for i in sel], n_sky_pad=n_sky_pad, device=dev)
+                for it in range(offline.iterations_per_window):
+                    occ = (it_total % n_acc) == n_acc - 1
+                    with span("loner.offline.draws"):
+                        draws = step_draws(window) if step_draws is not None else None
+                    result.state, aux = train_step(result.state, window, flags._replace(do_occ_update=occ),
+                                                   pose_mask, it, draws)
+                    losses.append(aux["loss"])
+                    it_total += 1
+            with span("loner.offline.sync"):
+                result.losses += [float(x) for x in torch.stack(losses).cpu()]
 
-        t_eval = time.time()
-        eval_set = eval_kfs if eval_kfs else train_kfs[: min(4, len(train_kfs))]
-        l1 = evaluate_l1_depth(cfg, cube, result.state, eval_set, offline.eval_rays_per_scan, offline.eval_seed,
-                               u_pdf=eval_u_pdf)
-        result.eval_time_s += time.time() - t_eval
+            eval_set = eval_kfs if eval_kfs else train_kfs[: min(4, len(train_kfs))]
+            with span("loner.offline.eval") as evaluation:
+                l1 = evaluate_l1_depth(cfg, cube, result.state, eval_set, offline.eval_rays_per_scan,
+                                       offline.eval_seed, u_pdf=eval_u_pdf)
+        result.eval_time_s += (evaluation.t1_ns - evaluation.t0_ns) * 1e-9
         result.l1_history.append(l1)
         result.epochs_run = epoch + 1
         log_fn(f"[offline] epoch {epoch + 1}/{offline.max_epochs}: L1 depth {l1:.3f} m, {it_total} iterations, "

@@ -60,6 +60,7 @@ from loner_tpu_torch.models.nerf import NeRFConfig, init_nerf
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig, init_occ_grid, occ_grid_cotangent
 from loner_tpu_torch.models.rendering import RenderResult, chunk_points, render_rays
 from loner_tpu_torch.ops.fused_encoder import TableSlabs
+from loner_tpu_torch.runtime.profiling import span
 
 
 class MapperConfig(NamedTuple):
@@ -495,12 +496,14 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
     def render_shard(chunk_params, point_chunks, poses, occ_grid, window, draws: StepDraws, ray_idx, cube_d):
         """The render of one row's block, its field in chunks of the lengths
         ``point_chunks`` lists, chunk c's with ``chunk_params[c]``."""
-        bundle = build_window_rays(poses, window, cube_d, cfg, ray_idx, draws.sky_idx)
-        if cfg.samples_strategy == "OGM":
-            z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, cfg.perturb, draws.u_strat,
-                                                      draws.u_pdf)
-        else:
-            z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, cfg.perturb, draws.u_strat)
+        with span("loner.step.rays"):
+            bundle = build_window_rays(poses, window, cube_d, cfg, ray_idx, draws.sky_idx)
+        with span("loner.step.sample"):
+            if cfg.samples_strategy == "OGM":
+                z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, n_samples, cfg.perturb, draws.u_strat,
+                                                          draws.u_pdf)
+            else:
+                z_vals = sampling.uniform_sampler_z_vals(bundle, n_samples, cfg.perturb, draws.u_strat)
         render = render_rays(chunk_params, bundle, z_vals, cfg.nerf, draws.enc_key, point_chunks=point_chunks,
                              enc_u=draws.u_enc)
         return render, bundle
@@ -538,7 +541,8 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
             shards.append((render, bundle, d_draws))
         render = _join([s[0] for s in shards], dev)
         bundle = _join([s[1] for s in shards], dev)
-        loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
+        with span("loner.step.loss"):
+            loss, aux = compute_lidar_loss(render, bundle, scale, cfg.loss, global_step, iteration)
         return loss, aux, shards
 
     def occ_cotangent(occ_grid, shards):
@@ -560,6 +564,11 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
 
     def train_step(state: MapperState, window, flags: TrainStepFlags, pose_mask: torch.Tensor,
                    iteration, draws: Optional[StepDraws] = None):
+        with span("loner.step"):
+            return step(state, window, flags, pose_mask, iteration, draws)
+
+    def step(state: MapperState, window, flags: TrainStepFlags, pose_mask: torch.Tensor, iteration,
+             draws: Optional[StepDraws]):
         if draws is None:
             draws = draw_step(cfg, window, generator, state.poses.device)
         pose_grads = not flags.freeze_poses
@@ -567,64 +576,75 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
         params = {"sigma": _tree_unflatten(state.params["sigma"], sigma_leaves), "intensity": state.params["intensity"]}
         poses = state.poses.detach().requires_grad_(pose_grads)
         with torch.enable_grad():
-            loss, aux, shards = forward(
-                params, poses, state.occ_grid, window, draws, iteration, state.global_step.to(torch.float32),
-            )
+            with span("loner.step.forward"):
+                loss, aux, shards = forward(
+                    params, poses, state.occ_grid, window, draws, iteration, state.global_step.to(torch.float32),
+                )
             wrt = sigma_leaves + ([poses] if pose_grads else [])
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
-        g_sigma = _tree_unflatten(state.params["sigma"], grads[: len(sigma_leaves)])
-        g_intensity = tree_map(torch.zeros_like, state.params["intensity"])
-        g_poses = grads[-1] if pose_grads else torch.zeros_like(state.poses)
-        loss = loss.detach()
-        finite = torch.isfinite(loss) & _all_finite(grads)
-        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
-        aux["loss"] = loss
-        aux["finite"] = finite
-        aux["grads"] = {"sigma": g_sigma, "intensity": g_intensity, "poses": g_poses}
-        not_finite = (~finite).to(torch.int32)
-        if not apply_updates:
-            return state._replace(global_step=state.global_step + 1,
-                                  skipped_steps=state.skipped_steps + not_finite), aux
+            with span("loner.step.backward"):
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        with span("loner.step.update"):
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
+            g_sigma = _tree_unflatten(state.params["sigma"], grads[: len(sigma_leaves)])
+            g_intensity = tree_map(torch.zeros_like, state.params["intensity"])
+            g_poses = grads[-1] if pose_grads else torch.zeros_like(state.poses)
+            loss = loss.detach()
+            with span("loner.step.finite"):
+                finite = torch.isfinite(loss) & _all_finite(grads)
+            aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+            aux["loss"] = loss
+            aux["finite"] = finite
+            aux["grads"] = {"sigma": g_sigma, "intensity": g_intensity, "poses": g_poses}
+            not_finite = (~finite).to(torch.int32)
+            if not apply_updates:
+                return state._replace(global_step=state.global_step + 1,
+                                      skipped_steps=state.skipped_steps + not_finite), aux
 
-        with torch.no_grad():
-            new_sigma, opt_sigma = _masked_group(
-                g_sigma, state.opt_sigma, state.params["sigma"], flags.freeze_sigma, finite,
-                cfg.lr_sigma, cfg.lr_gamma, cfg.sigma_weight_decay,
-            )
-            new_intensity, opt_intensity = _masked_group(
-                g_intensity, state.opt_intensity, state.params["intensity"], flags.freeze_rgb, finite,
-                cfg.lr_rgb, cfg.lr_gamma, cfg.rgb_weight_decay,
-            )
-            if pose_grads:
-                # the mask applies after Adam: every row's moments advance
-                upd, opt_poses_new = adam_updates(g_poses, state.opt_poses, state.poses, cfg.lr_pose, cfg.pose_lr_gamma)
-                new_poses = state.poses + upd * pose_mask[:, None]
-                skip = ~finite
-                new_poses = torch.where(skip, state.poses, new_poses)
-                opt_poses = _select(skip, state.opt_poses, opt_poses_new)
-            else:
-                new_poses, opt_poses = state.poses, state.opt_poses
+            with torch.no_grad():
+                with span("loner.step.adam"):
+                    new_sigma, opt_sigma = _masked_group(
+                        g_sigma, state.opt_sigma, state.params["sigma"], flags.freeze_sigma, finite,
+                        cfg.lr_sigma, cfg.lr_gamma, cfg.sigma_weight_decay,
+                    )
+                with span("loner.step.adam"):
+                    new_intensity, opt_intensity = _masked_group(
+                        g_intensity, state.opt_intensity, state.params["intensity"], flags.freeze_rgb, finite,
+                        cfg.lr_rgb, cfg.lr_gamma, cfg.rgb_weight_decay,
+                    )
+                with span("loner.step.adam"):
+                    if pose_grads:
+                        # the mask applies after Adam: every row's moments advance
+                        upd, opt_poses_new = adam_updates(g_poses, state.opt_poses, state.poses, cfg.lr_pose,
+                                                          cfg.pose_lr_gamma)
+                        new_poses = state.poses + upd * pose_mask[:, None]
+                        skip = ~finite
+                        new_poses = torch.where(skip, state.poses, new_poses)
+                        opt_poses = _select(skip, state.opt_poses, opt_poses_new)
+                    else:
+                        new_poses, opt_poses = state.poses, state.opt_poses
 
-            occ_grid, opt_occ = state.occ_grid, state.opt_occ
-            if flags.do_occ_update:
-                upd, opt_occ_new = adam_updates(occ_cotangent(state.occ_grid, shards), state.opt_occ, state.occ_grid,
-                                                cfg.occ.lr)
-                skip = ~finite
-                occ_grid = torch.where(skip, state.occ_grid, state.occ_grid + upd)
-                opt_occ = _select(skip, state.opt_occ, opt_occ_new)
+                occ_grid, opt_occ = state.occ_grid, state.opt_occ
+                if flags.do_occ_update:
+                    with span("loner.step.occ"):
+                        upd, opt_occ_new = adam_updates(occ_cotangent(state.occ_grid, shards), state.opt_occ,
+                                                        state.occ_grid, cfg.occ.lr)
+                        skip = ~finite
+                        occ_grid = torch.where(skip, state.occ_grid, state.occ_grid + upd)
+                        opt_occ = _select(skip, state.opt_occ, opt_occ_new)
 
-            new_state = MapperState(
-                params={"sigma": new_sigma, "intensity": new_intensity},
-                poses=new_poses,
-                opt_sigma=opt_sigma,
-                opt_intensity=opt_intensity,
-                opt_poses=opt_poses,
-                occ_grid=occ_grid,
-                opt_occ=opt_occ,
-                global_step=state.global_step + 1,
-                skipped_steps=state.skipped_steps + not_finite,
-            )
+                new_state = MapperState(
+                    params={"sigma": new_sigma, "intensity": new_intensity},
+                    poses=new_poses,
+                    opt_sigma=opt_sigma,
+                    opt_intensity=opt_intensity,
+                    opt_poses=opt_poses,
+                    occ_grid=occ_grid,
+                    opt_occ=opt_occ,
+                    global_step=state.global_step + 1,
+                    skipped_steps=state.skipped_steps + not_finite,
+                )
+        with span("loner.step.release"):
+            del shards  # the render's tensors, and the autograd graph's nodes with them
         return new_state, aux
 
     train_step.generator = generator

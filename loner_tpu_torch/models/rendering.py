@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from loner_tpu_torch.models.nerf import NeRFConfig, query_nerf_t, query_sigma_t
+from loner_tpu_torch.runtime.profiling import span
 
 
 class RenderResult(NamedTuple):
@@ -152,15 +153,20 @@ def _chunked(fn, x_t: torch.Tensor, n_chunks: Union[int, list], u: Optional[torc
     ``n_chunks`` equal ones when that divides it (else one), or, where
     ``n_chunks`` is a list, chunks of the lengths it lists. ``u`` is one
     block shared by every chunk, or one column per point, chunked with the
-    points."""
+    points. Each chunk's call is one ``loner.field`` span."""
     n = x_t.shape[-1]
     if isinstance(n_chunks, int):
         c = chunk_points(n, n_chunks)
         n_chunks = [n] if c == n else [c] * (n // c)
+
+    def field(x, uc, c):
+        with span("loner.field"):
+            return fn(x, uc, c)
+
     if len(n_chunks) == 1:
-        return fn(x_t, u, 0)
+        return field(x_t, u, 0)
     us = u.split(n_chunks, dim=-1) if u is not None and u.shape[-1] == n else [u] * len(n_chunks)
-    return torch.cat([fn(x, uc, c) for c, (x, uc) in enumerate(zip(x_t.split(n_chunks, dim=-1), us))], dim=-1)
+    return torch.cat([field(x, uc, c) for c, (x, uc) in enumerate(zip(x_t.split(n_chunks, dim=-1), us))], dim=-1)
 
 
 def render_rays(params: Union[dict, list], bundle, z_vals: torch.Tensor, cfg: NeRFConfig,
@@ -206,6 +212,7 @@ def render_rays(params: Union[dict, list], bundle, z_vals: torch.Tensor, cfg: Ne
                                          enc_u, enc_u_intensity),
             torch.cat([flat, dirs_t]), point_chunks,
         ).reshape(-1, n, s)
-    rgb, depth, weights, opacity, variance = _STRATEGIES[render_strategy](
-        raw_t, z_vals, bundle.directions, bundle.far, sigma_only, cfg.num_colors)
+    with span("loner.composite"):
+        rgb, depth, weights, opacity, variance = _STRATEGIES[render_strategy](
+            raw_t, z_vals, bundle.directions, bundle.far, sigma_only, cfg.num_colors)
     return RenderResult(rgb, depth, weights, opacity, variance, z_vals, pts_t, raw_t)
