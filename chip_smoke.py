@@ -9,8 +9,9 @@ Run from the root of a checkout, with one card:
 
 (``python3 chip_smoke.py --only 3h`` builds the kernels and runs leg 3h
 alone, with its reduced-depth steps, and prints neither result line;
-``--only 3i`` and ``--only 3j`` do the same for legs 3i and 3j, and
-``--only 3g`` runs 3d's CLI drive, then leg 3g on its freshly trained map.)
+``--only 3i``, ``--only 3j`` and ``--only 3k`` do the same for legs 3i, 3j
+and 3k, and ``--only 3g`` runs 3d's CLI drive, then leg 3g on its freshly
+trained map.)
 
 In order:
   1. print the card's name and power limit, build the kernel library
@@ -38,6 +39,13 @@ In order:
      of its grid, and on 4099 and 8192 rows, 136 and 4 columns and a table
      view 4 bytes off (each kernel's device ms beside its bound and its
      share of it);
+  3k. the exact table gradient's kernel (``fused_dtable_kernel``) at the
+      hash-grid benchmark cell's shape (the flagship's 2,359,296 sampled
+      points, rays of depth-sorted samples; L=16, F=2, 2^16 rows): against
+      its plain version and against the float64 sum of the same terms, its
+      time, device ms, byte bound, today's per-level index_add_ as the
+      library call, both per level, the run share per level, and a few
+      FusedHash train steps with the exact gradient, one launch each;
   3. build the flagship mapper and run joint, pose-frozen and
      occupancy-update train steps, with every kernel's launch count set to 0
      just before and read just after: each kernel of the path must have
@@ -528,6 +536,130 @@ def _check_fused_kernels(fe, ecfg, pts, gen, what):
     res["dpts_bound"] = _bound(n * (12 + 16 * l * f + 4 * l * f + 12), n * l * (117 + 16 * f))
     print(f"B4/B5 at the {what} shapes (L={l}, F={f}, N={n}): " + ", ".join(
         f"{k} {v[0]:.4f} ({v[1]})" if isinstance(v, tuple) else f"{k} {v:.4g}" for k, v in res.items()))
+    return res
+
+
+def _window_points(opt, cfg, cube, state, window, draws):
+    """(rays, z values, field points (3, rays x S) in [0, 1]) of one train
+    step's draws: each ray's S samples contiguous and sorted in depth, as
+    ``render_rays`` lays them out."""
+    with torch.no_grad():
+        bundle = opt.build_window_rays(state.poses, window, cube.to(state.poses.device), cfg, draws.ray_idx,
+                                       draws.sky_idx)
+        z = opt.sampling.occ_grid_sampler_z_vals(bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb,
+                                                 draws.u_strat, draws.u_pdf)
+        pts = (bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z[None]).reshape(3, -1)
+    return bundle, z, ((pts + 1.0) / 2.0).contiguous()
+
+
+# the kernel against the float64 sum of the same f32 terms, normwise: f32
+# additions in other orders (a tree inside each warp's run, then atomics in
+# a varying order across runs; index_add_ one term at a time), as leg 3h
+# holds its encoders' table gradients
+DTABLE_F64_BOUND = 1e-5
+
+
+def _dtable_leg(opt, flagship, fe, mcfg, pts, wrappers, dev) -> dict:
+    """Leg 3k: the exact table gradient's kernel at the hash-grid cell's
+    shape, on ``pts`` (the flagship's sampled points), then a few train
+    steps of the FusedHash field ``mcfg`` with the exact gradient."""
+    from loner_tpu_torch.models.nerf import fused_config_from
+
+    ecfg = fused_config_from(mcfg.nerf, mcfg.nerf.pos_encoding_sigma)
+    l, f, t, n = ecfg.n_levels, ecfg.n_features, ecfg.table_size, pts.shape[1]
+    g = torch.randn((ecfg.output_dim, n), generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+    before = fe._bwd_dtable_exact.launches
+    d = fe._bwd_dtable_exact(pts, g, ecfg)
+    torch.cuda.synchronize()
+    if fe._bwd_dtable_exact.launches != before + 1:
+        raise AssertionError("leg 3k: the exact table gradient did not launch its kernel once")
+    plain = fe.dtable_exact_ref(pts, g, ecfg)
+    # the float64 sum of the same f32 terms (corner weight x g), on the card
+    d64 = torch.zeros(d.shape, dtype=torch.float64, device=dev)
+    for lvl, scale in enumerate(ecfg.level_scales()):
+        upd = fe._row_updates(pts, g[f * lvl : f * lvl + f], scale).double()
+        d64[lvl].index_add_(0, fe._level_indices(pts, ecfg, lvl), upd)
+    del upd
+
+    def shares(a, b):  # (normwise, largest error / largest entry) of a against b
+        diff = a.double() - b
+        return (float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(b)),
+                float(diff.abs().max() / b.abs().max()))
+
+    res = {"points": n, "levels": l, "features": f, "rows": t}
+    res["kernel_vs_f64"], res["plain_vs_f64"] = shares(d, d64), shares(plain, d64)
+    res["kernel_vs_plain"] = shares(d, plain.double())
+    res["f64_bound"] = DTABLE_F64_BOUND
+    res["margin"] = DTABLE_F64_BOUND / max(res["kernel_vs_f64"][0], 1e-30)
+    res["plain_margin"] = DTABLE_F64_BOUND / max(res["plain_vs_f64"][0], 1e-30)
+    per_level = [(float(torch.linalg.vector_norm(d[i].double() - d64[i]) / torch.linalg.vector_norm(d64[i])),
+                  float(torch.linalg.vector_norm(plain[i].double() - d64[i]) / torch.linalg.vector_norm(d64[i])))
+                 for i in range(l)]
+    res["per_level_vs_f64"] = per_level
+    del d, plain, d64
+    torch.cuda.empty_cache()
+    ok = res["kernel_vs_f64"][0] <= DTABLE_F64_BOUND
+    res["run_share"] = fe.dtable_run_share(pts, ecfg)
+    # timings: the kernel (its zero fill included), the plain version, and
+    # the library call alone: 16 index_add_ of precomputed rows and updates
+    idx = [fe._level_indices(pts, ecfg, lvl) for lvl in range(l)]
+    upds = [fe._row_updates(pts, g[f * lvl : f * lvl + f], s) for lvl, s in enumerate(ecfg.level_scales())]
+
+    def library():
+        out = torch.zeros((l, t, ecfg.row_width), dtype=torch.float32, device=dev)
+        for lvl in range(l):
+            out[lvl].index_add_(0, idx[lvl], upds[lvl])
+        return out
+
+    res["ms"] = _event_ms(lambda: fe._bwd_dtable_exact(pts, g, ecfg), 20)
+    res["device_ms"] = graph_ms(lambda: fe._bwd_dtable_exact(pts, g, ecfg))
+    res["plain_ms"] = _event_ms(lambda: fe.dtable_exact_ref(pts, g, ecfg), 5)
+    res["library_ms"] = _event_ms(library, 5)
+    res["library_device_ms"] = graph_ms(library, calls=5, replays=4)
+    res["zero_fill_device_ms"] = graph_ms(lambda: torch.zeros((l, t, ecfg.row_width), device=dev))
+    # per level: the kernel on one level (a 1-level configuration of the
+    # same scale, resolution and table) and one index_add_
+    res["per_level_device_ms"] = []
+    for lvl in range(l):
+        one = ecfg._replace(n_levels=1, base_resolution=int(round(ecfg.base_resolution * ecfg.per_level_scale**lvl)))
+        if float(one.level_scales()[0]) != float(ecfg.level_scales()[lvl]):
+            raise AssertionError(f"leg 3k: level {lvl} is not a 1-level configuration")
+        g_l = g[f * lvl : f * lvl + f]
+        out = torch.zeros((t, ecfg.row_width), dtype=torch.float32, device=dev)
+        res["per_level_device_ms"].append(
+            (graph_ms(lambda: fe._bwd_dtable_exact(pts, g_l, one)),
+             graph_ms(lambda: out.index_add_(0, idx[lvl], upds[lvl]), calls=5, replays=4)))
+    del idx, upds
+    torch.cuda.empty_cache()
+    # bytes: points and g read once, the gradient written once
+    res["bound"] = _bound(12.0 * n + 4.0 * l * f * n + 4.0 * l * t * ecfg.row_width, 16.0 * f * l * n)
+    print(f"leg 3k, the exact table gradient at L={l}, F={f}, {t} rows, N={n}: normwise (largest error / largest "
+          f"entry) against the float64 sum, kernel {res['kernel_vs_f64'][0]:.3e} ({res['kernel_vs_f64'][1]:.3e}), "
+          f"plain index_add_ {res['plain_vs_f64'][0]:.3e} ({res['plain_vs_f64'][1]:.3e}); margin to "
+          f"{DTABLE_F64_BOUND:g}: kernel {res['margin']:.2f}x, plain {res['plain_margin']:.2f}x; kernel against "
+          f"plain {res['kernel_vs_plain'][0]:.3e}; ms {res['ms']:.4f} (device {res['device_ms']:.4f}, zero fill "
+          f"{res['zero_fill_device_ms']:.4f}), plain {res['plain_ms']:.4f}, library index_add_ "
+          f"{res['library_ms']:.4f} (device {res['library_device_ms']:.4f}), bound {res['bound'][0]:.4f} "
+          f"({res['bound'][1]}); run share {res['run_share']['overall']:.4f}, per level "
+          f"{[round(x, 4) for x in res['run_share']['levels']]}; per level device ms (kernel, index_add_) "
+          f"{[(round(a, 4), round(b, 4)) for a, b in res['per_level_device_ms']]}; per level normwise against "
+          f"float64 (kernel, plain) {[(float('%.2e' % a), float('%.2e' % b)) for a, b in per_level]}", flush=True)
+    if not ok:
+        raise AssertionError(f"leg 3k: the table-gradient kernel is {res['kernel_vs_f64'][0]:.3e} from the float64 "
+                             f"sum, over {DTABLE_F64_BOUND:g}")
+    del g
+    torch.cuda.empty_cache()
+    # the main path: FusedHash train steps with the exact gradient, one
+    # launch of the kernel each
+    joint = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=False, do_occ_update=False)
+    plan = [("joint", joint)] * 4 + [("frozen", joint._replace(freeze_poses=True))] * 2
+    exact = mcfg._replace(nerf=mcfg.nerf._replace(encoding_bwd="exact"))
+    xcfg, xcube, xstate, xwindow = flagship(device=dev, cfg=exact)
+    _, _, _, res["steps"] = _drive(
+        "fused, exact table gradient", opt, xcfg, xcube, xstate, xwindow, plan, wrappers + (fe._bwd_dtable_exact,),
+        {"pdf_sample": len(plan), "interp_fwd": len(plan), "interp_dpts": 4, "_bwd_dtable_exact": len(plan)})
+    del xstate, xwindow
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2798,6 +2930,17 @@ def main() -> None:
         (out_dir / "chip_smoke_3j.json").write_text(json.dumps(leg, indent=1))
         print("leg 3j passed")
         return
+    if sys.argv[1:] == ["--only", "3k"]:  # leg 3k alone: no kernel line and no device line
+        wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
+        cfg, cube, state, window = flagship(device=dev)
+        draws = opt.draw_step(cfg, window, torch.Generator(device=dev).manual_seed(1), dev)
+        pts = _window_points(opt, cfg, cube, state, window, draws)[2]
+        del state, window, draws
+        leg = _dtable_leg(opt, flagship, fe, opt.MapperConfig(nerf=NeRFConfig(encoding_impl="fused")), pts, wrappers,
+                          dev)
+        (out_dir / "chip_smoke_3k.json").write_text(json.dumps(leg, indent=1))
+        print("leg 3k passed")
+        return
     if sys.argv[1:] == ["--only", "3g"]:  # the CLI drive, then leg 3g on its map: no kernel line, no device line
         wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
         root = Path(__file__).resolve().parent
@@ -2807,7 +2950,7 @@ def main() -> None:
         print("leg 3g passed")
         return
     if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only 3g, 3h, 3i or 3j)")
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only 3g, 3h, 3i, 3j or 3k)")
 
     # the two hash-on fields: the triad's fat-row level (TriadConfig(hash_levels=1))
     # and the 16-level FusedHash (NeRFConfig(encoding_impl="fused"))
@@ -2828,12 +2971,8 @@ def main() -> None:
     res, nf = triad.cp_resolutions, triad.cp_features
     gen = torch.Generator(device=dev).manual_seed(1)
     draws = opt.draw_step(cfg, window, gen, dev)
+    bundle, z, pts = _window_points(opt, cfg, cube, state, window, draws)
     with torch.no_grad():
-        bundle = opt.build_window_rays(state.poses, window, cube.to(dev), cfg, draws.ray_idx, draws.sky_idx)
-        z = opt.sampling.occ_grid_sampler_z_vals(bundle, state.occ_grid, cfg.n_samples_train, cfg.perturb,
-                                                 draws.u_strat, draws.u_pdf)
-        pts = (bundle.origins.T[:, :, None] + bundle.directions.T[:, :, None] * z[None]).reshape(3, -1)
-        pts = ((pts + 1.0) / 2.0).contiguous()
         half = cfg.n_samples_train // 2
         zs = opt.sampling.stratified_z_vals(bundle.near, bundle.far, half, cfg.perturb, draws.u_strat)
         probs = opt.sampling.occupancy_probs_t(
@@ -2958,6 +3097,10 @@ def main() -> None:
         for shape, s in fused_shapes.items():
             device_ms[f"{name}_{shape}"] = s[f"{kind}_graph_ms"]
     print("device ms by CUDA-graph replay: " + ", ".join(f"{k} {v:.4f}" for k, v in device_ms.items()))
+
+    # 3k: the exact table gradient's kernel at the hash-grid cell's shape
+    wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
+    dtable = _dtable_leg(opt, flagship, fe, hash_cfgs["fused"], pts, wrappers, dev)
     del pts
     torch.cuda.empty_cache()
     for r in report:
@@ -2968,7 +3111,6 @@ def main() -> None:
     joint = opt.TrainStepFlags(freeze_sigma=False, freeze_rgb=True, freeze_poses=False, do_occ_update=False)
     frozen = joint._replace(freeze_poses=True)
     occ = joint._replace(do_occ_update=True)
-    wrappers = (cp_kernel.cp_fwd, cp_kernel.cp_bwd, pdf_kernel.pdf_sample, fe.interp_fwd, fe.interp_dpts)
     plan = [("joint", joint)] * 6 + [("frozen", frozen)] * 4 + [("occ_update", occ)] * 2
     n_steps, n_pose = len(plan), sum(1 for _, f in plan if not f.freeze_poses)
     paths = {}
@@ -3093,6 +3235,7 @@ def main() -> None:
     summary = {"card": smi, "paths": paths, "online_slam": slam, "cli_drive": cli, "offline_fdt": offline,
                "bench": bench_res, "encoder_experiment": encoder_exp, "loop_closure": loop, "camera": camera, "map_tools": map_tools,
                "encoders": encoders, "parallel": parallel, "reduced_step": reduced, "fused_kernel_shapes": fused_shapes,
+               "dtable_exact": dtable,
                "pdf_sample_graph_ms": b3_graph, "device_ms": device_ms, "probe_kernels": probe_kernels, "probes": probes,
                "kernels": report}
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

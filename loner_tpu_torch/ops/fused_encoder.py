@@ -19,9 +19,15 @@ features ``(L*F, N)`` f32.
   Each takes its plain version for a CPU tensor and launches its kernel for a
   CUDA tensor; ``launches`` counts the launches.
 * :func:`interp_fwd_ref` / :func:`dpts_ref` are the plain versions.
-* The gather of the corner rows (:func:`_gather_v_t`) and the table gradient
-  (:func:`_bwd_dtable_exact`, :func:`_bwd_dtable_strided`) are plain PyTorch
-  ops, as the JAX package leaves them to XLA.
+* The exact table gradient :func:`_bwd_dtable_exact` is a kernel wrapper too
+  (``fused_dtable_kernel``, one launch for all levels; no TPU kernel: the JAX
+  package leaves it to XLA), with :func:`dtable_exact_ref`, the per-level
+  plain scatter, as its plain version, :func:`dtable_exact_plan` for its
+  limits and :func:`dtable_run_share` for how much of its input the kernel
+  sums inside a warp.
+* The gather of the corner rows (:func:`_gather_v_t`) and the strided table
+  gradient (:func:`_bwd_dtable_strided`) are plain PyTorch ops, as the JAX
+  package leaves them to XLA.
 * :func:`fused_hash_encode_t` is the differentiable encode
   (``torch.autograd.Function``).
 * A table may come as :class:`TableSlabs`, contiguous slabs of its cell
@@ -248,10 +254,11 @@ def _scatter_rows(d: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor, row0: i
     d.index_add_(0, idx, upd)
 
 
-def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig, row0: int = 0,
-                      rows: Optional[int] = None) -> torch.Tensor:
-    """(L, T, 8F) f32: every (point, level) adds its row update. With
-    ``rows``, the gradient of the slab [row0, row0 + rows) alone."""
+def dtable_exact_ref(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig, row0: int = 0,
+                     rows: Optional[int] = None) -> torch.Tensor:
+    """(L, T, 8F) f32: every (point, level) adds its row update, one
+    ``index_add_`` a level. With ``rows``, the gradient of the slab [row0,
+    row0 + rows) alone."""
     nf = cfg.n_features
     rows = cfg.table_size if rows is None else rows
     d = torch.zeros((cfg.n_levels, rows, cfg.row_width), dtype=torch.float32, device=pts_t.device)
@@ -259,6 +266,84 @@ def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig
         upd = _row_updates(pts_t, g[nf * lvl : nf * lvl + nf], scale)
         _scatter_rows(d[lvl], _level_indices(pts_t, cfg, lvl), upd, row0, cfg.table_size)
     return d
+
+
+_DTABLE_THREADS = 256  # points a block of fused_dtable_kernel takes, per level
+_LIMIT32 = 1 << 31
+
+
+class DtablePlan(NamedTuple):
+    blocks: int  # blocks of _DTABLE_THREADS points on the grid's x axis, one row of blocks a level
+    vec4_per_run: int  # float4 atomics a run of equal rows adds its 8F sums with
+
+
+def dtable_exact_plan(n_levels: int, n_features: int, n: int, rows: int, table_size: int) -> DtablePlan:
+    """The launch of :func:`_bwd_dtable_exact`'s kernel for ``n`` points into
+    a slab of ``rows`` rows of a table of ``table_size``; raises ValueError
+    for what its 32-bit offsets cannot index (the C entry refuses the same).
+    Rows are 8F floats, whole float4s, so every run adds with 2F vector
+    atomics: no F takes a scalar path."""
+    if not 1 <= n_levels <= 32 or not 1 <= n_features <= 32:
+        raise ValueError(f"n_levels {n_levels} / n_features {n_features} outside [1, 32]")
+    if n < 0 or rows < 0:
+        raise ValueError(f"negative size: n {n}, rows {rows}")
+    if n * n_levels * n_features >= _LIMIT32:
+        raise ValueError(f"{n} points x {n_levels} levels x {n_features} features: g has 2^31 elements or more")
+    if n_levels * rows * 8 * n_features >= _LIMIT32:
+        raise ValueError(f"the gradient of {n_levels} x {rows} rows x {8 * n_features} has 2^31 elements or more")
+    if not 1 <= table_size <= _LIMIT32 or table_size & (table_size - 1):
+        raise ValueError(f"table size {table_size}: not a power of two up to 2^31")
+    return DtablePlan(-(-n // _DTABLE_THREADS), 2 * n_features)
+
+
+def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig, row0: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """(L, T, 8F) f32: every (point, level) adds its row update. With
+    ``rows``, the gradient of the slab [row0, row0 + rows) alone. One launch
+    of ``fused_dtable_kernel`` on CUDA (sums in another order than the plain
+    version's), :func:`dtable_exact_ref` on CPU."""
+    if pts_t.device.type == "cpu":
+        return dtable_exact_ref(pts_t, g, cfg, row0, rows)
+    rows = cfg.table_size if rows is None else rows
+    n = _check_points(pts_t)
+    kernels.require(g, "g", torch.float32, (cfg.output_dim, n), pts_t.device)
+    if row0 < 0 or row0 + rows > cfg.table_size:
+        raise ValueError(f"slab [{row0}, {row0 + rows}) outside the table's {cfg.table_size} rows")
+    dtable_exact_plan(cfg.n_levels, cfg.n_features, n, rows, cfg.table_size)
+    d = torch.zeros((cfg.n_levels, rows, cfg.row_width), dtype=torch.float32, device=pts_t.device)
+    if n == 0 or rows == 0:
+        return d
+    levels = cfg.n_levels
+    scales = (ctypes.c_float * levels)(*[float(x) for x in cfg.level_scales()])
+    res = (ctypes.c_int * levels)(*[int(x) for x in cfg.level_resolutions()])
+    dense = (ctypes.c_int * levels)(*[int(x) for x in cfg.level_is_dense()])
+    with torch.cuda.device(pts_t.device):
+        rc = kernels.load().loner_fused_dtable(
+            pts_t.data_ptr(), g.data_ptr(), d.data_ptr(), n, levels, cfg.n_features,
+            ctypes.cast(scales, ctypes.c_void_p), ctypes.cast(res, ctypes.c_void_p),
+            ctypes.cast(dense, ctypes.c_void_p), cfg.table_size, row0, rows, kernels.stream_ptr(pts_t),
+        )
+    kernels.check(rc, "dtable_exact")
+    _bwd_dtable_exact.launches += 1
+    return d
+
+
+_bwd_dtable_exact.launches = 0
+
+
+def dtable_run_share(pts_t: torch.Tensor, cfg: FusedHashConfig) -> dict:
+    """How much of the exact table gradient the kernel sums inside a warp:
+    per level and over all levels, the share of (point, level) updates
+    folded into a run head. A point folds where its row equals the row of
+    the point before it in the same aligned group of 32 (a warp's lanes).
+    Counted on the whole table's rows; the train step does not call it."""
+    n = pts_t.shape[-1]
+    lane = torch.arange(1, n, device=pts_t.device) % 32
+    levels = []
+    for lvl in range(cfg.n_levels):
+        idx = _level_indices(pts_t, cfg, lvl)
+        levels.append(int(((idx[1:] == idx[:-1]) & (lane != 0)).sum()) / max(n, 1))
+    return {"levels": levels, "overall": sum(levels) / len(levels)}
 
 
 def _bwd_dtable_strided(pts_t: torch.Tensor, g: torch.Tensor, key_data: torch.Tensor, cfg: FusedHashConfig,
@@ -300,11 +385,16 @@ def _strided_ok(cfg: FusedHashConfig, n: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _check_args(pts_t: torch.Tensor, v_t: torch.Tensor, cfg: FusedHashConfig):
+def _check_points(pts_t: torch.Tensor) -> int:
+    """N of a CUDA tensor of points (3, N) f32; raises on anything else."""
     kernels.require(pts_t, "pts_t", torch.float32)
     if pts_t.dim() != 2 or pts_t.shape[0] != 3:
         raise ValueError(f"pts_t: expected (3, N), got {tuple(pts_t.shape)}")
-    n = pts_t.shape[1]
+    return pts_t.shape[1]
+
+
+def _check_args(pts_t: torch.Tensor, v_t: torch.Tensor, cfg: FusedHashConfig):
+    n = _check_points(pts_t)
     kernels.require(v_t, "v_t", torch.bfloat16, (cfg.n_levels, cfg.row_width, n))
     if v_t.device != pts_t.device:
         raise ValueError("v_t and pts_t lie on different devices")

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "loner_fused_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
     # pts, v_t, g, dpts, n, n_levels, n_features, scales, stream
     "loner_fused_dpts": (_P, _P, _P, _P, _LL, _I, _I, _P, _P),
+    # pts, g, d, n, n_levels, n_features, scales, res, dense, table_size, row0, rows, stream
+    "loner_fused_dtable": (_P, _P, _P, _LL, _I, _I, _P, _P, _P, _LL, _LL, _LL, _P),
     # pts, lines, out, n, n_levels, n_features, res, stream
     "loner_cp_gather_fwd": (_P, _P, _P, _LL, _I, _I, _P, _P),
     # idx, upd, acc, n, t, w, nshadow, acc_bf16, vec, stream

@@ -4,8 +4,9 @@ tests/test_fused_encoder.py (F=2, 2^10 cells, base 4: levels 0-1 dense) and
 the triad's fat-row hash level (L=1, F=4, 2^10 cells). Cell ids bit-equal;
 the plain forward and point gradient against the jnp references and the
 Pallas kernels in TPU interpret mode; the exact and strided table gradients;
-the key fallback; the whole autograd encode against ``jax.grad``. The card
-tests hold kernels B4/B5 against their plain versions."""
+the key fallback; the whole autograd encode against ``jax.grad``; the exact
+table gradient's slabs, launch plan and run share. The card tests hold
+kernels B4/B5 and the table-gradient kernel against their plain versions."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,6 +219,129 @@ def test_init_fused_table():
     assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 5e-5
 
 
+def _ray_samples(n_rays, s, seed):
+    """(3, n_rays * s) points as rays of s samples sorted in depth, each
+    ray's samples contiguous (render_rays's layout), inside the unit cube."""
+    rng = np.random.default_rng(seed)
+    origins = rng.uniform(0.3, 0.7, size=(3, n_rays, 1))
+    dirs = rng.standard_normal((3, n_rays, 1))
+    dirs /= np.linalg.norm(dirs, axis=0, keepdims=True)
+    depth = np.sort(rng.uniform(0.0, 0.3, size=(1, n_rays, s)), axis=-1)
+    return T((origins + dirs * depth).reshape(3, -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("nf", [2, 16])
+def test_exact_table_gradient_slabs_are_rows_of_the_whole(nf):
+    """The gradient of a slab [row0, row0 + rows) is those rows of the whole
+    table's gradient, at dense levels (0-1) and hashed ones (2-3)."""
+    _, tc = _cfgs("fused", n_features=nf, bwd="exact")
+    assert list(tc.level_is_dense()) == [True, True, False, False]
+    _, pts, g = _inputs(tc, n=300, seed=7)
+    whole = tfe._bwd_dtable_exact(T(pts), T(g), tc)
+    t = tc.table_size
+    for row0, rows in ((0, t // 2), (t // 2, t // 2), (t // 4, t // 2), (t - 3, 3)):
+        slab = tfe._bwd_dtable_exact(T(pts), T(g), tc, row0, rows)
+        assert slab.shape == (tc.n_levels, rows, tc.row_width)
+        np.testing.assert_array_equal(slab.numpy(), whole[:, row0 : row0 + rows].numpy())
+    # dense levels 0-1 index 4^3 and 8^3 cells
+    assert torch.count_nonzero(whole[0, 64:]) == torch.count_nonzero(whole[1, 512:]) == 0
+    assert torch.count_nonzero(whole[2:]) > 0
+
+
+@pytest.mark.parametrize("nf", range(1, 33))
+def test_exact_table_gradient_plan_takes_every_width(nf):
+    """Every row of 8F floats is whole float4s: 2F vector atomics a run."""
+    plan = tfe.dtable_exact_plan(16, nf, 2_359_296, 1 << 16, 1 << 16)
+    assert plan == tfe.DtablePlan(blocks=9216, vec4_per_run=2 * nf)
+    assert tfe.dtable_exact_plan(1, nf, 257, 1, 1).blocks == 2
+
+
+@pytest.mark.parametrize("args", [
+    (16, 0, 100, 1024, 1024), (16, 33, 100, 1024, 1024), (0, 2, 100, 1024, 1024), (33, 2, 100, 1024, 1024),
+    (16, 2, 1 << 26, 1024, 1024),  # 2^26 points x 16 levels x 2 features = 2^31 elements of g
+    (16, 16, 1 << 23, 1024, 1024),  # 2^23 x 16 x 16 = 2^31
+    (32, 32, 100, 1 << 18, 1 << 18),  # a gradient of 32 x 2^18 x 256 = 2^31 elements
+    (16, 2, 100, 1000, 1000),  # not a power of two
+    (16, 2, -1, 1024, 1024),
+])
+def test_exact_table_gradient_plan_refuses_32_bit_overflow(args):
+    with pytest.raises(ValueError):
+        tfe.dtable_exact_plan(*args)
+
+
+def test_exact_table_gradient_plan_limits_are_just_inside():
+    tfe.dtable_exact_plan(16, 2, (1 << 26) - 1, 1024, 1024)
+    tfe.dtable_exact_plan(32, 32, 100, (1 << 18) - 1, 1 << 18)
+    tfe.dtable_exact_plan(16, 16, (1 << 23) - 1, 1024, 1024)
+    tfe.dtable_exact_plan(1, 1, 0, 0, 1 << 31)
+
+
+def test_run_share_of_one_cell_groups():
+    """All points in one cell: every lane but the first of each aligned
+    32-point group folds into its run's head, and a run never crosses a
+    group's boundary (a ragged last group counts its own lanes)."""
+    _, tc = _cfgs("fused")
+    for n, folded in ((32, 31), (64, 62), (96 + 8, 93 + 7)):
+        share = tfe.dtable_run_share(torch.full((3, n), 0.4), tc)
+        assert share["levels"] == [folded / n] * tc.n_levels
+        assert share["overall"] == pytest.approx(folded / n)
+    # two cells alternating within every group: nothing folds
+    pts = torch.full((3, 64), 0.4)
+    pts[:, 1::2] = 0.9
+    assert tfe.dtable_run_share(pts, tc)["overall"] == 0.0
+
+
+def test_run_share_of_shuffled_and_sorted_points():
+    """Points shuffled across the cells of a fine level fold almost never;
+    rays of depth-sorted samples fold more than the same points permuted."""
+    tc = tfe.FusedHashConfig(n_levels=4, log2_cells=16, base_resolution=64)
+    _, pts, _ = _inputs(tc, n=4096, seed=8)
+    assert tfe.dtable_run_share(T(pts), tc)["overall"] < 0.01
+    _, tc = _cfgs("fused")
+    rays = _ray_samples(64, 64, seed=9)
+    sorted_share = tfe.dtable_run_share(rays, tc)
+    perm = torch.randperm(rays.shape[1], generator=torch.Generator().manual_seed(0))
+    permuted = tfe.dtable_run_share(rays[:, perm], tc)
+    assert sorted_share["overall"] > permuted["overall"] + 0.2
+    assert all(a >= b for a, b in zip(sorted_share["levels"], permuted["levels"]))
+    assert sorted_share["levels"][0] >= sorted_share["levels"][-1]
+
+
+def _dtable64(pts, g, cfg, row0=0, rows=None):
+    """The exact table gradient's terms (f32 products, as both versions
+    form them) summed in float64, on the CPU."""
+    pts, g = pts.cpu(), g.cpu()
+    rows = cfg.table_size if rows is None else rows
+    d = torch.zeros((cfg.n_levels, rows, cfg.row_width), dtype=torch.float64)
+    nf = cfg.n_features
+    for lvl, scale in enumerate(cfg.level_scales()):
+        upd = tfe._row_updates(pts, g[nf * lvl : nf * lvl + nf], scale).double()
+        tfe._scatter_rows(d[lvl], tfe._level_indices(pts, cfg, lvl), upd, row0, cfg.table_size)
+    return d
+
+
+def _check_dtable_on_card(pts, g, cfg, row0=0, rows=None, against_plain=True):
+    """The kernel against the float64 sum of the same terms and against the
+    plain version, normwise and by the largest error over the largest entry:
+    both sum f32 terms by f32 additions in other orders (the kernel a tree
+    inside each warp's run, then atomics in a varying order), 1e-5. Where
+    one entry sums 10^5 terms the plain version's own f32 sum drifts from
+    float64 by more than that: hold the kernel against float64 alone."""
+    before = tfe._bwd_dtable_exact.launches
+    got = tfe._bwd_dtable_exact(pts, g, cfg, row0, rows)
+    torch.cuda.synchronize()
+    assert tfe._bwd_dtable_exact.launches == before + 1
+    want64 = _dtable64(pts, g, cfg, row0, rows)
+    plain = tfe.dtable_exact_ref(pts, g, cfg, row0, rows).cpu()
+    got = got.cpu()
+    assert got.shape == plain.shape and got.dtype == torch.float32
+    scale = float(want64.abs().max())
+    for ref in (want64, plain.double()) if against_plain else (want64,):
+        assert _rel(got, ref.numpy()) <= 1e-5
+        assert float((got.double() - ref).abs().max()) <= 1e-5 * scale
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_fused_kernels_match_plain_on_card(name):
@@ -239,3 +363,25 @@ def test_fused_kernels_match_plain_on_card(name):
         tfe.interp_fwd(pts, v_t.float(), tc)
     with pytest.raises(ValueError):
         tfe.interp_fwd(pts, v_t.cpu(), tc)
+    # the exact table gradient: F of the configuration and 16, N a multiple
+    # of 32 and not, rays of sorted samples, a table in two slabs
+    for cfg in (tc, tc._replace(n_features=16)):
+        for seed, n in ((0, 256), (1, 100_003)):
+            _, pts, g = (T(a).cuda() for a in _inputs(cfg, n=n, seed=seed))
+            _check_dtable_on_card(pts, g, cfg)
+        pts = _ray_samples(781, 128, seed=2).cuda()
+        g = torch.randn((cfg.output_dim, pts.shape[1]), generator=torch.Generator().manual_seed(3)).cuda()
+        whole = _check_dtable_on_card(pts, g, cfg)
+        t = cfg.table_size
+        halves = [_check_dtable_on_card(pts, g, cfg, r0, t // 2) for r0 in (0, t // 2)]
+        assert torch.count_nonzero(torch.cat(halves, dim=1)) == torch.count_nonzero(whole)
+    # the worst case: every point in one cell, one row a level takes every term
+    n = 100_003
+    pts = torch.full((3, n), 0.37, device="cuda")
+    g = torch.rand((tc.output_dim, n), generator=torch.Generator().manual_seed(4)).cuda()
+    got = _check_dtable_on_card(pts, g, tc, against_plain=False)
+    assert int((got.abs().sum(-1) > 0).sum()) == tc.n_levels
+    with pytest.raises(ValueError):
+        tfe._bwd_dtable_exact(pts, g.double(), tc)
+    with pytest.raises(ValueError):
+        tfe._bwd_dtable_exact(pts, g.cpu(), tc)
