@@ -27,21 +27,35 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from benchmark import check, sensor
+from benchmark import check, fields, sensor
 from benchmark.draws import RENDER, WEIGHTS, sub_seed
-from benchmark.drivers.online_mapper import (StepRecorder, _counters, _plant_loss, _plant_step, _sync, draws_hook,
-                                             mapper_config)
+from benchmark.drivers.online_mapper import (StepRecorder, _plant_loss, _plant_step, _sync, draws_hook, mapper_config,
+                                             tiny_train)
 from benchmark.harness import Cell, LayerContext, Outcome
 from benchmark.reference import field as ref_field
 from benchmark.reference.train import OnlineInputs, band_indices, follow_offline, named_leaves
-from benchmark.roofline import counts
+from benchmark.roofline import counts, kernels
 
 FAULTS = ("unchanged", "half_batch")
 
 
+def tiny(cell: Cell) -> None:
+    """The cell cut, in place, to a size the CPU runs in seconds: the
+    sensor, the circles, the forest, the offline loop and the training keys."""
+    mix = cell.mix
+    mix["sensor"].update(channels=8, azimuth=64, scan_points=384, sky_points=64)
+    for c in mix["circles"]:
+        c["poses"] = 3
+    mix["offline"].update(window_size=2, iterations_per_window=3, n_eval_scans=2, eval_rays_per_scan=32)
+    mix["forest"]["trees"] = 12
+    tiny_train(cell.config["train"])
+
+
 def prepare(cell: Cell, seed: int, device: str):
     """(the sequence's scans with their trunk bands, what the reference is
-    handed, the first window's keyframes in the loop's order)."""
+    handed, the first window's keyframes in the loop's order); first refuses
+    a field that the benchmark cannot build."""
+    fields.load(cell.config)
     mix, s = cell.mix, cell.mix["sensor"]
     scans = sensor.make_scans(mix, torch.device(device), seed)
     for sc in scans:
@@ -150,7 +164,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         if trace:
             from benchmark.trace import traced
 
-            ctrs = _counters()
+            ctrs = kernels.counters()
             before = {name: fn.launches for name, fn in ctrs.items()}
             c0 = recorder.count
             with traced(work_dir, dev.type == "cuda", host=False) as holder:

@@ -31,47 +31,39 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import check, sensor
+from benchmark import check, fields, sensor
 from benchmark.draws import WEIGHTS, step_draws, sub_seed
 from benchmark.harness import Cell, LayerContext, Outcome
 from benchmark.reference import field as ref_field
 from benchmark.reference.train import OnlineInputs, Readings, follow_online, moved_rows, named_leaves
-from benchmark.roofline import counts
+from benchmark.roofline import counts, kernels
 
-def _counters() -> Dict[str, object]:
-    """The launch counters of the program's kernels, by the names of
-    ``roofline.counts.KERNEL_NAMES``."""
-    from loner_tpu_torch.ops.cp_kernel import cp_bwd, cp_fwd
-    from loner_tpu_torch.ops.fused_encoder import interp_dpts, interp_fwd
-    from loner_tpu_torch.ops.pdf_kernel import pdf_sample
 
-    return {"cp_fwd": cp_fwd, "cp_bwd": cp_bwd, "hash_fwd": interp_fwd, "hash_dpts": interp_dpts,
-            "pdf_sample": pdf_sample}
+def tiny(cell: Cell) -> None:
+    """The cell cut, in place, to a size the CPU runs in seconds: the
+    sensor, the lap and the training keys."""
+    cell.mix["sensor"].update(channels=8, azimuth=64, scan_points=384, sky_points=64)
+    cell.mix["lap"]["keyframes"] = 4
+    tiny_train(cell.config["train"])
+
+
+def tiny_train(train: dict) -> None:
+    """The training keys that :func:`mapper_config` reads, cut for the CPU."""
+    train.update(window_size=3, rays_per_kf=32, sky_rays_per_kf=8, n_samples_train=64, n_samples_test=64,
+                 occ_voxels=16, occ_every=2, burn_in_iterations=4, iterations_per_keyframe=3)
 
 
 def mapper_config(config: dict, mix: dict, scale: float):
-    """The port's ``OnlineMapperConfig`` for the configuration and mix."""
+    """The port's ``OnlineMapperConfig`` for the configuration and mix, its
+    field built by the configuration's module in ``fields/``."""
     from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManagerConfig
     from loner_tpu_torch.mapping.mapper import IterationPhase, OnlineMapperConfig, SchedulePhase
     from loner_tpu_torch.mapping.optimizer import MapperConfig
-    from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
     from loner_tpu_torch.models.losses import LossConfig
-    from loner_tpu_torch.models.nerf import NeRFConfig
     from loner_tpu_torch.models.occupancy_grid import OccGridConfig
-    from loner_tpu_torch.ops.triad_field import TriadConfig
 
-    f, t, s = config["field"], config["train"], mix["sensor"]
-    common = dict(sigma_hidden_dim=f["sigma_hidden_dim"], sigma_hidden_layers=f["sigma_hidden_layers"],
-                  compute_dtype=f["compute_dtype"])
-    if f["encoder"] == "triad":
-        nerf = NeRFConfig(encoding_impl="triad", **common, triad=TriadConfig(
-            cp_resolutions=tuple(f["cp_resolutions"]), cp_features=f["cp_features"],
-            fourier_freqs=f["fourier_freqs"], hash_levels=0))
-    else:
-        enc = HashEncodingConfig(n_levels=f["hash_levels"], n_features_per_level=f["hash_features"],
-                                 log2_hashmap_size=f["hash_log2_entries"], base_resolution=f["hash_base_resolution"],
-                                 per_level_scale=f["hash_per_level_scale"])
-        nerf = NeRFConfig(encoding_impl="fused", encoding_bwd=f["table_gradient"], pos_encoding_sigma=enc, **common)
+    t, s = config["train"], mix["sensor"]
+    nerf = fields.load(config).nerf_config(config["field"])
     loss = LossConfig(**{k: v for k, v in t["loss"].items() if k in LossConfig._fields})
     mcfg = MapperConfig(
         nerf=nerf, loss=loss,
@@ -191,7 +183,9 @@ def _sync(device: torch.device) -> None:
 
 def prepare(cell: Cell, seed: int, device: str):
     """(the lap's scans, what the reference is handed): the scans, the
-    world cube and the configuration, all made from the mix and the seed."""
+    world cube and the configuration, all made from the mix and the seed;
+    first refuses a field that the benchmark cannot build."""
+    fields.load(cell.config)
     scans = sensor.make_scans(cell.mix, torch.device(device), seed)
     s = cell.mix["sensor"]
     scale, shift = sensor.world_cube(np.stack([a["pose"] for a in scans]), s["range_m"][1])
@@ -281,7 +275,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     if trace:
         from benchmark.trace import traced
 
-        counters = _counters()
+        counters = kernels.counters()
         before = {name: fn.launches for name, fn in counters.items()}
         c0 = recorder.count
         _sync(dev)

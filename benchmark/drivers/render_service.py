@@ -27,11 +27,23 @@ import torch
 
 from benchmark import sensor
 from benchmark.draws import RENDER, WEIGHTS, sub_seed
+from benchmark.drivers.online_mapper import mapper_config, tiny_train
 from benchmark.harness import Cell, LayerContext, Outcome
 from benchmark.reference import field as ref_field
 from benchmark.reference.geometry import lidar_rays
 from benchmark.reference.render import ogm_z_vals, render
-from benchmark.roofline import counts
+from benchmark.roofline import counts, kernels
+
+
+def tiny(cell: Cell) -> None:
+    """The cell cut, in place, to a size the CPU runs in seconds: the
+    sweep, the lap, the chunks, the check and the trace, and the training
+    keys."""
+    cell.mix["sensor"].update(channels=8, azimuth=64)
+    cell.mix["lap"]["keyframes"] = 4
+    cell.mix.update(chunk_rays=128, check_chunks=2, trace_requests=1)
+    tiny_train(cell.config["train"])
+
 
 def _map(cell: Cell, seed: int, dev: torch.device):
     gen = torch.Generator(device=dev).manual_seed(sub_seed(seed, WEIGHTS))
@@ -101,8 +113,6 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     from loner_tpu_torch.geometry.world_cube import WorldCube
     from loner_tpu_torch.mapping.optimizer import init_mapper_state
 
-    from benchmark.drivers.online_mapper import mapper_config
-
     mix, t, s = cell.mix, cell.config["train"], cell.mix["sensor"]
     dev = torch.device(device)
     scale, shift = sensor.world_cube(sensor.trajectory(mix), s["range_m"][1])
@@ -152,10 +162,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     layer = LayerContext(config=cell.config, mix=mix, window_steps=n_req, window_s=elapsed,
                          peak_window_bytes=peak_window, flops_per_step=counts.render_flops(n_points, cell.config["field"]))
     if trace:
-        from benchmark.drivers.online_mapper import _counters
         from benchmark.trace import traced
 
-        counters = _counters()
+        counters = kernels.counters()
         before = {name: fn.launches for name, fn in counters.items()}
         with traced(work_dir, dev.type == "cuda", host=False) as holder:
             for _ in range(mix["trace_requests"]):

@@ -6,8 +6,12 @@ whose ``driver`` names the general driver in ``drivers/`` that reads it),
 its limits (``limits/<cell>.json``) and one reader per per-layer metric
 (``metrics/<metric>.py``, or ``metrics/<quantity>.py`` for a metric
 ``<quantity>.<split>``: a function ``read(ctx)`` returning the number in the
-metric's unit, or None where it finds nothing to read). Adding a cell,
-a mix or a metric adds files and entries; nothing here changes.
+metric's unit, or None where it finds nothing to read). Below them, the
+configuration's field is found by its encoder (``fields/<encoder>.py``,
+``reference/encoders/<encoder>.py``) and each kernel's counts by its name
+(``roofline/kernels/<kernel>.py``). Adding a cell, a configuration, a
+field, a kernel, a mix or a metric adds files and entries; nothing here
+changes.
 
 A run prints, as the last line of standard output, one JSON object:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
@@ -59,6 +63,7 @@ class LayerContext:
     window_steps: int = 0
     window_s: float = 0.0
     host_step_s: List[float] = field(default_factory=list)  # host seconds inside each step call
+    step_span: str = "loner.step"  # the program's span around each step, its stages named under it
     peak_window_bytes: int = 0
     flops_per_step: float = 0.0
 

@@ -1,8 +1,8 @@
-"""Host milliseconds a train step of the measured window spends in its
+"""Host milliseconds a step of the measured window spends in its
 ``loner.field`` spans, one a point chunk: the encoder and the MLP
 (``program_spans.py``)."""
-from benchmark.metrics.program_spans import stage_ms
+from benchmark.metrics.program_spans import spans_ms
 
 
 def read(ctx):
-    return stage_ms(ctx, "loner.field")
+    return spans_ms(ctx, "loner.field")

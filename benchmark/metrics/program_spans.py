@@ -1,11 +1,13 @@
 """The measured window read from the program's own span record
-(``loner_tpu_torch.runtime.profiling``): ``loner.step`` around each train
-step with its stages inside, and the keyframe's or epoch's upload and
-synchronize beside the steps.
+(``loner_tpu_torch.runtime.profiling``): the step span (``ctx.step_span``,
+``loner.step`` unless the driver names another) around each step with its
+stages inside (``<step span>.forward`` and so on), and the keyframe's or
+epoch's upload and synchronize beside the steps (children of the steps'
+parent whose names end in ``.stack_window`` and ``.sync``).
 
-The window's steps are the last ``len(ctx.host_step_s)`` ``loner.step``
-spans begun with no profiler active (the traced stretches after the window
-all run under one), each inside the benchmark's own time of its call; its
+The window's steps are the last ``len(ctx.host_step_s)`` step spans begun
+with no profiler active (the traced stretches after the window all run
+under one), each inside the benchmark's own time of its call; its
 keyframes or epochs are those steps' parents. Every span takes an id as it
 begins and is recorded as it ends, and the ring drops the oldest record
 first, so the window is whole when the ring holds every id from its first
@@ -17,9 +19,8 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, NamedTuple, Optional, Tuple
 
-STEP = "loner.step"
-UPLOAD = ("loner.mapper.stack_window", "loner.offline.stack_window")
-SYNC = ("loner.mapper.sync", "loner.offline.sync")
+UPLOAD = ".stack_window"
+SYNC = ".sync"
 
 
 class Window(NamedTuple):
@@ -39,7 +40,7 @@ def window(ctx) -> Optional[Window]:
     if read_records is None or n == 0:
         return None
     recs = read_records()
-    steps = [r for r in recs if r.name == STEP and not r.profiled][-n:]
+    steps = [r for r in recs if r.name == ctx.step_span and not r.profiled][-n:]
     if len(steps) < n:
         return None
     # each step span lies inside the benchmark's time of its call (1 us of rounding)
@@ -65,7 +66,7 @@ def window(ctx) -> Optional[Window]:
     return Window(n, dict(by_step), dict(by_parent), has_parents)
 
 
-def stage_ms(ctx, name: str) -> Optional[float]:
+def spans_ms(ctx, name: str) -> Optional[float]:
     """Mean host ms a window step spends in the spans ``name`` inside it."""
     w = window(ctx)
     if w is None:
@@ -73,10 +74,15 @@ def stage_ms(ctx, name: str) -> Optional[float]:
     return 1e-6 * sum(ns for (_, n), ns in w.by_step.items() if n == name) / w.steps
 
 
-def beside_ms(ctx, names: Tuple[str, ...]) -> Optional[float]:
+def stage_ms(ctx, stage: str) -> Optional[float]:
+    """Mean host ms a window step spends in its stage ``<step span>.<stage>``."""
+    return spans_ms(ctx, f"{ctx.step_span}.{stage}")
+
+
+def beside_ms(ctx, suffix: str) -> Optional[float]:
     """Host ms the window's keyframes or epochs spend in their child spans
-    ``names``, over the window's steps."""
+    whose names end in ``suffix``, over the window's steps."""
     w = window(ctx)
     if w is None or not w.has_parents:
         return None
-    return 1e-6 * sum(w.by_parent.get(n, 0) for n in names) / w.steps
+    return 1e-6 * sum(ns for n, ns in w.by_parent.items() if n.endswith(suffix)) / w.steps

@@ -1,12 +1,13 @@
-"""BENCHMARK.json: every cell, configuration, mix, metric and limit is found
-by name, and the file keeps the benchmark's contract."""
+"""BENCHMARK.json: every cell, configuration, field, mix, metric, limit and
+CPU cut is found by name, and the file keeps the benchmark's contract."""
 import json
 import re
 
 import pytest
 
-from benchmark.harness import ROOT, load_bench, load_cell, load_reader
-from benchmark.tests.tiny import CHECKOUT
+from benchmark import fields
+from benchmark.harness import ROOT, load_bench, load_cell, load_driver, load_reader
+from benchmark.tests.tiny import CHECKOUT, cut_of
 
 BENCH = load_bench(CHECKOUT)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -33,6 +34,8 @@ def test_cell_is_found_by_name(cell):
     for m in c.per_layer:
         assert m["moves"] in names
         assert callable(load_reader(m["name"]))
+    cut_of(load_driver(c.mix))  # the driver's and the field module's CPU cuts are there
+    cut_of(fields.load(c.config))
 
 
 def test_names_units_and_lines():
@@ -59,7 +62,9 @@ def test_config_files():
         cfg = json.loads((CHECKOUT / c["file"]).read_text())
         assert cfg["source"] == c["source"] and len(c["source"]) <= 200
         assert sorted(cfg["reduced"]) == sorted(c["reduced"])
+        blocks = [b for k, b in cfg.items() if isinstance(b, dict) and k not in ("published", "why_reduced")]
         for key in c["reduced"]:
-            assert key in cfg["published"] and cfg["train"][key] != cfg["published"][key]
+            held = [b[key] for b in blocks if key in b]
+            assert key in cfg["published"] and held and all(v != cfg["published"][key] for v in held), key
         assert cfg["field"]["compute_dtype"] == cfg["compute_dtype"] == "bfloat16"
         assert cfg["assumed"]

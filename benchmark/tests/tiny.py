@@ -1,32 +1,31 @@
-"""A cell of BENCHMARK.json cut to a size the CPU runs in seconds."""
+"""A cell of BENCHMARK.json cut to a size the CPU runs in seconds, by the
+cuts of the modules it runs: its driver's ``tiny(cell)`` (the mix and the
+training keys) and its field module's ``tiny(config)`` (the field block)."""
 from __future__ import annotations
 
 import copy
 from pathlib import Path
+from types import ModuleType
+from typing import Callable
 
-from benchmark.harness import load_cell
+from benchmark import fields
+from benchmark.harness import load_cell, load_driver
 
 CHECKOUT = Path(__file__).resolve().parents[2]
+
+
+def cut_of(module: ModuleType) -> Callable:
+    """The module's ``tiny``; LookupError naming its file where it brings none."""
+    cut = getattr(module, "tiny", None)
+    if not callable(cut):
+        raise LookupError(f"{Path(module.__file__).relative_to(CHECKOUT)} brings no CPU cut (tiny)")
+    return cut
 
 
 def tiny_cell(name: str):
     cell = load_cell(CHECKOUT, name)
     cell.config = copy.deepcopy(cell.config)
     cell.mix = copy.deepcopy(cell.mix)
-    cell.mix["sensor"].update(channels=8, azimuth=64, scan_points=384, sky_points=64)
-    if "lap" in cell.mix:
-        cell.mix["lap"]["keyframes"] = 4
-    for c in cell.mix.get("circles", []):
-        c["poses"] = 3
-    if "offline" in cell.mix:
-        cell.mix["offline"].update(window_size=2, iterations_per_window=3, n_eval_scans=2, eval_rays_per_scan=32)
-        cell.mix["forest"]["trees"] = 12
-    cell.mix.update({k: v for k, v in (("chunk_rays", 128), ("check_chunks", 2), ("trace_requests", 1))
-                     if k in cell.mix})
-    t = cell.config["train"]
-    t.update(window_size=3, rays_per_kf=32, sky_rays_per_kf=8, n_samples_train=64, n_samples_test=64,
-             occ_voxels=16, occ_every=2, burn_in_iterations=4, iterations_per_keyframe=3)
-    f = cell.config["field"]
-    if f["encoder"] == "fused":
-        f.update(hash_levels=4, hash_log2_entries=12, hash_log2_cells=10)
+    cut_of(load_driver(cell.mix))(cell)
+    cut_of(fields.load(cell.config))(cell.config)
     return cell
