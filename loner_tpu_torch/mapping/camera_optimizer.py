@@ -10,6 +10,12 @@ gradient) and takes one Adam step of the intensity group on the masked L1
 intensity loss. Like the JAX step it counts itself in ``global_step`` (which
 the lidar loss schedule reads) and a non-finite step in ``skipped_steps``.
 
+A step records its spans (``runtime/profiling.py``): ``loner.camera.step``
+holding ``.forward`` (``.rays``, ``.sample``, the field's ``loner.field``
+chunks, each with its ``loner.field.intensity``, ``loner.composite`` and
+``.loss``), ``.backward`` (``autograd.grad``) and ``.update`` (``.finite``,
+``.adam``).
+
 The pixel and sampler draws come in a :class:`CameraDraws`, or from the
 step's ``torch.Generator``, so that a caller can replay another source's.
 With a mesh (``mesh=``) the step runs on the mesh's first device, where
@@ -37,6 +43,7 @@ from loner_tpu_torch.mapping.optimizer import (
 from loner_tpu_torch.models import sampling
 from loner_tpu_torch.models.losses import compute_camera_loss
 from loner_tpu_torch.models.rendering import render_rays
+from loner_tpu_torch.runtime.profiling import span
 
 
 class CameraWindow(NamedTuple):
@@ -160,13 +167,39 @@ def _sample_camera_rays(window: CameraWindow, cube, cfg: MapperConfig, bi: torch
 def camera_rays_and_samples(cfg: MapperConfig, cube, window: CameraWindow, occ_grid, draws: CameraDraws):
     """The rays of a camera step's pixel draws, their target intensities and
     their samples (the occupancy-grid sampler under OGM, else uniform)."""
-    bundle, target = _sample_camera_rays(window, cube, cfg, draws.bi, draws.yi, draws.xi)
-    if cfg.samples_strategy == "OGM":
-        z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, cfg.n_samples_train, cfg.perturb, draws.u_strat,
-                                                  draws.u_pdf)
-    else:
-        z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
+    with span("loner.camera.step.rays"):
+        bundle, target = _sample_camera_rays(window, cube, cfg, draws.bi, draws.yi, draws.xi)
+    with span("loner.camera.step.sample"):
+        if cfg.samples_strategy == "OGM":
+            z_vals = sampling.occ_grid_sampler_z_vals(bundle, occ_grid, cfg.n_samples_train, cfg.perturb,
+                                                      draws.u_strat, draws.u_pdf)
+        else:
+            z_vals = sampling.uniform_sampler_z_vals(bundle, cfg.n_samples_train, cfg.perturb, draws.u_strat)
     return bundle, target, z_vals
+
+
+def camera_forward(cfg: MapperConfig, params, bundle: RayBundle, target: torch.Tensor, z_vals: torch.Tensor,
+                   enc_key: torch.Tensor, enc_key_intensity: torch.Tensor,
+                   u_enc_intensity: Optional[torch.Tensor] = None):
+    """The forward half of :func:`camera_loss_and_grads`: (loss, aux,
+    leaves), the loss and aux still attached to the graph through
+    ``leaves``, the leaves of ``params["intensity"]`` that the backward
+    differentiates by."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params["intensity"])]
+    p = {"sigma": params["sigma"], "intensity": _tree_unflatten(params["intensity"], leaves)}
+    with torch.enable_grad():
+        render = render_rays(p, bundle, z_vals, cfg.nerf, enc_key, sigma_only=False, detach_sigma=True,
+                             key_intensity=enc_key_intensity, enc_u_intensity=u_enc_intensity)
+        with span("loner.camera.step.loss"):
+            loss, aux = compute_camera_loss(render, target, bundle.valid, cfg.loss)
+    return loss, aux, leaves
+
+
+def camera_backward(loss: torch.Tensor, leaves) -> list:
+    """The backward half: the gradient of ``loss`` by each leaf (zeros for a
+    leaf the loss does not reach)."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
 
 def camera_loss_and_grads(cfg: MapperConfig, params, bundle: RayBundle, target: torch.Tensor, z_vals: torch.Tensor,
@@ -178,14 +211,9 @@ def camera_loss_and_grads(cfg: MapperConfig, params, bundle: RayBundle, target: 
     ``params["intensity"]`` (zeros for a leaf the loss does not reach).
     ``u_enc_intensity`` is the "cell" intensity encoder's corner uniforms.
     Returns (loss, aux, grads), all detached."""
-    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params["intensity"])]
-    p = {"sigma": params["sigma"], "intensity": _tree_unflatten(params["intensity"], leaves)}
-    with torch.enable_grad():
-        render = render_rays(p, bundle, z_vals, cfg.nerf, enc_key, sigma_only=False, detach_sigma=True,
-                             key_intensity=enc_key_intensity, enc_u_intensity=u_enc_intensity)
-        loss, aux = compute_camera_loss(render, target, bundle.valid, cfg.loss)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    loss, aux, leaves = camera_forward(cfg, params, bundle, target, z_vals, enc_key, enc_key_intensity,
+                                       u_enc_intensity)
+    grads = camera_backward(loss, leaves)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -209,25 +237,35 @@ def make_camera_train_step(cfg: MapperConfig, cube, n_rays: int = 4096, mesh=Non
         generator = torch.Generator(device=dev).manual_seed(0)
 
     def camera_step(state: MapperState, window: CameraWindow, draws: Optional[CameraDraws] = None):
+        with span("loner.camera.step"):
+            return step(state, window, draws)
+
+    def step(state: MapperState, window: CameraWindow, draws: Optional[CameraDraws]):
         if draws is None:
             draws = draw_camera_step(cfg, window, n_rays, generator, state.poses.device)
-        bundle, target, z_vals = camera_rays_and_samples(cfg, cube, window, state.occ_grid, draws)
-        loss, aux, grads = camera_loss_and_grads(cfg, state.params, bundle, target, z_vals, draws.enc_key,
-                                                 draws.enc_key_intensity, draws.u_enc_intensity)
-        g_intensity = _tree_unflatten(state.params["intensity"], grads)
-        finite = torch.isfinite(loss) & _all_finite(grads)
-        with torch.no_grad():
-            new_intensity, opt_intensity = _masked_group(
-                g_intensity, state.opt_intensity, state.params["intensity"], False, finite,
-                cfg.lr_rgb, cfg.lr_gamma, cfg.rgb_weight_decay,
-            )
-            new_state = state._replace(
-                params={"sigma": state.params["sigma"], "intensity": new_intensity},
-                opt_intensity=opt_intensity,
-                global_step=state.global_step + 1,
-                skipped_steps=state.skipped_steps + (~finite).to(torch.int32),
-            )
-        return new_state, {"cam_l1": aux["cam_l1"], "loss": loss, "finite": finite,
+        with span("loner.camera.step.forward"):
+            bundle, target, z_vals = camera_rays_and_samples(cfg, cube, window, state.occ_grid, draws)
+            loss, aux, leaves = camera_forward(cfg, state.params, bundle, target, z_vals, draws.enc_key,
+                                               draws.enc_key_intensity, draws.u_enc_intensity)
+        with span("loner.camera.step.backward"):
+            grads = camera_backward(loss, leaves)
+        with span("loner.camera.step.update"):
+            loss = loss.detach()
+            g_intensity = _tree_unflatten(state.params["intensity"], grads)
+            with span("loner.camera.step.finite"):
+                finite = torch.isfinite(loss) & _all_finite(grads)
+            with torch.no_grad(), span("loner.camera.step.adam"):
+                new_intensity, opt_intensity = _masked_group(
+                    g_intensity, state.opt_intensity, state.params["intensity"], False, finite,
+                    cfg.lr_rgb, cfg.lr_gamma, cfg.rgb_weight_decay,
+                )
+                new_state = state._replace(
+                    params={"sigma": state.params["sigma"], "intensity": new_intensity},
+                    opt_intensity=opt_intensity,
+                    global_step=state.global_step + 1,
+                    skipped_steps=state.skipped_steps + (~finite).to(torch.int32),
+                )
+        return new_state, {"cam_l1": aux["cam_l1"].detach(), "loss": loss, "finite": finite,
                            "grads": {"intensity": g_intensity}}
 
     camera_step.generator = generator

@@ -13,7 +13,9 @@ string the exact multi-resolution hash grid, each sized by the branch's
 :class:`HashEncodingConfig`. The transposed queries keep features leading
 and the point axis minor: ``query_sigma_t`` -> (N,), ``query_nerf_t`` ->
 (num_colors + 1, N) rows [colors..., sigma]. With ``detach_sigma`` (the
-camera phase) the sigma branch runs without gradients. Positions arrive in
+camera phase) the sigma branch runs without gradients. The intensity
+branch (its encoder, the SH encoding, its MLP and the sigmoid) records one
+``loner.field.intensity`` span a query. Positions arrive in
 world-cube coordinates [-1, 1]^3 and map to [0, 1]^3.
 """
 from __future__ import annotations
@@ -30,6 +32,7 @@ from loner_tpu_torch.ops.cell_hash import CellHashConfig, cell_hash_encode_t, in
 from loner_tpu_torch.ops.fused_encoder import FusedHashConfig, fused_hash_encode_t, init_fused_table
 from loner_tpu_torch.ops.hash_encode_fast import hash_encode_packed_t
 from loner_tpu_torch.ops.triad_field import TriadConfig, init_triad, triad_encode_t
+from loner_tpu_torch.runtime.profiling import span
 
 
 class NeRFConfig(NamedTuple):
@@ -185,11 +188,13 @@ def query_nerf_t(params: dict, pts_cube_t: torch.Tensor, viewdirs_t: Optional[to
             sigma = query_sigma_t(params, pts_cube_t, cfg, key, u)
     else:
         sigma = query_sigma_t(params, pts_cube_t, cfg, key, u)
-    pos = (pts_cube_t + 1.0) / 2.0
-    h_x = _encode_t(cfg, params["intensity"]["table"], pos, cfg.pos_encoding_intensity, key_intensity, u_intensity)
-    if cfg.enable_view_dependence:
-        h_x = torch.cat([h_x, sh_encode_t(viewdirs_t.T, cfg.sh_degree)], dim=0)
-    color = torch.sigmoid(mlp_apply_t(params["intensity"]["mlp"], h_x, cfg.intensity_mlp_config()))  # (C, N)
+    with span("loner.field.intensity"):
+        pos = (pts_cube_t + 1.0) / 2.0
+        h_x = _encode_t(cfg, params["intensity"]["table"], pos, cfg.pos_encoding_intensity, key_intensity,
+                        u_intensity)
+        if cfg.enable_view_dependence:
+            h_x = torch.cat([h_x, sh_encode_t(viewdirs_t.T, cfg.sh_degree)], dim=0)
+        color = torch.sigmoid(mlp_apply_t(params["intensity"]["mlp"], h_x, cfg.intensity_mlp_config()))  # (C, N)
     return torch.cat([color, sigma[None, :]], dim=0)
 
 

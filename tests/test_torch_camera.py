@@ -304,13 +304,12 @@ def _adam(chain):
     return next(s for s in jax.tree.leaves(chain, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu"))
 
 
-@pytest.mark.parametrize("dtype", sorted(TOL))
-def test_camera_step_matches_jax(dtype):
+def _check_camera_step_against_jax(dtype, hash_term="off"):
     """One camera step from one converted state with the JAX step's draws:
     the loss, the intensity gradients, the new intensity parameters and
     Adam moments and count, ``global_step`` and ``skipped_steps``; sigma,
     the poses, the occupancy grid and the other Adam groups untouched."""
-    jcfg, jcube, jstate, jwin, tcfg, tcube, twin = _setup(dtype)
+    jcfg, jcube, jstate, jwin, tcfg, tcube, twin = _setup(dtype, hash_term)
     jstate = jstate._replace(global_step=jnp.asarray(7, jnp.int32))
     jnew, jaux = jcam.make_camera_train_step(jcfg, jcube, n_rays=N_RAYS)(jstate, jwin, KEY)
     jnew = tp.np_tree(jnew)
@@ -342,6 +341,32 @@ def test_camera_step_matches_jax(dtype):
     for name in ("opt_sigma", "opt_poses", "opt_occ"):
         assert int(getattr(new, name).count) == 0, name
     assert torch.equal(new.poses, state.poses) and torch.equal(new.occ_grid, state.occ_grid)
+    tp.assert_trees_close(jnew.params["sigma"], tp.np_tree(jstate.params["sigma"]), 0, 0, "JAX sigma")
+    np.testing.assert_array_equal(jnew.poses, np.asarray(jstate.poses))
+    return aux, jg
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_camera_step_matches_jax(dtype):
+    """One camera step of the default (triad) field against the JAX step's."""
+    _check_camera_step_against_jax(dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_decoupled_fused_camera_step_matches_jax(dtype):
+    """One camera step of LONER's decoupled field (``torch_parity.HASH
+    ["fused_rgb"]``: FusedHash in both branches with the exact table
+    gradient, SH of degree 4, a 4-layer colour MLP; the configuration of
+    the benchmark's camera cell, which tests/test_torch_camera_rgb.py holds
+    against the benchmark's plain reference) against the JAX step's, by the
+    same checks and bounds as the default field's; the intensity table's
+    gradient is among the gradients compared, and is not all zero."""
+    aux, jg = _check_camera_step_against_jax(dtype, "fused_rgb")
+    _, _, _, _, tcfg, _, _ = _setup(dtype, "fused_rgb")
+    n = tcfg.nerf
+    assert (n.encoding_impl, n.encoding_bwd, n.sh_degree, n.intensity_hidden_layers) == ("fused", "exact", 4, 4)
+    assert len(aux["grads"]["intensity"]["mlp"]["w"]) == len(jg["intensity"]["mlp"]["w"]) == 5
+    assert float(np.abs(tp.t2n(aux["grads"]["intensity"]["table"])).max()) > 0
 
 
 @pytest.mark.parametrize("hash_term", ["cell", "packed", "exact"])

@@ -61,6 +61,11 @@ HASH = {
     "triad_hash_tp": dict(triad=dict(hash_levels=1, hash_features=4), enc=dict(log2_hashmap_size=15), nerf={}),
     **{f"{impl}_tp": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=14, base_resolution=4),
                           nerf=dict(encoding_impl=impl, **kw)) for impl, kw in _ENCODER_NERF.items()},
+    # LONER's decoupled field (default_nerf_hash.yaml) in small: FusedHash in
+    # both branches with the exact table gradient, SH of degree 4 and a
+    # 4-layer colour MLP
+    "fused_rgb": dict(triad={}, enc=dict(n_levels=4, log2_hashmap_size=12, base_resolution=4),
+                      nerf=dict(encoding_impl="fused", encoding_bwd="exact", sh_degree=4, intensity_hidden_layers=4)),
 }
 
 
