@@ -39,6 +39,14 @@ the first device, where the state lives (``parallel/sharding.py``,
 gradients and leaves the state's parameters, moments, poses and grid as
 they were.
 
+On one CUDA device (one data row of one device) the step runs as CUDA
+graphs (``mapping/step_graph.py``): each key of flags and input shapes runs
+eagerly once, is captured at its second call and replayed from then on; the
+step function counts them in ``graph_captures`` and ``graph_replays``. On
+the CPU and over several rows or devices it runs eagerly. Every random
+number comes in before the step, so a graph holds none; ``iteration`` goes
+in as a device scalar on CUDA.
+
 ``make_render_fn`` is the evaluation render: ``n_samples_test`` samples per
 ray, no jitter, no gradient. ``make_debug_probe`` is the train step's ray
 build, sampler and render without gradients, returning per-ray and
@@ -53,6 +61,7 @@ import torch
 from loner_tpu_torch.device import resolve_device
 from loner_tpu_torch.geometry import se3
 from loner_tpu_torch.geometry.rays import RayBundle, build_lidar_rays
+from loner_tpu_torch.mapping.step_graph import StepGraphs
 from loner_tpu_torch.models import sampling
 from loner_tpu_torch.models.losses import LossConfig, compute_lidar_loss
 from loner_tpu_torch.models.mlp import round_weights
@@ -328,13 +337,13 @@ def draw_permutation(window, generator: torch.Generator, device) -> torch.Tensor
     return torch.argsort(torch.rand((w, p), generator=generator, device=device), dim=1)
 
 
-def fixed_ray_idx(perm: torch.Tensor, iteration: int, rays_per_kf: int) -> torch.Tensor:
-    """FIXED's lidar indices at ``iteration``: rays_per_kf consecutive
-    entries of each keyframe's permutation (W, P) from (iteration *
-    rays_per_kf) mod P on, wrapping; P // rays_per_kf iterations visit every
-    point once."""
+def fixed_ray_idx(perm: torch.Tensor, iteration, rays_per_kf: int) -> torch.Tensor:
+    """FIXED's lidar indices at ``iteration`` (a number, or a device int64
+    scalar): rays_per_kf consecutive entries of each keyframe's permutation
+    (W, P) from (iteration * rays_per_kf) mod P on, wrapping; P //
+    rays_per_kf iterations visit every point once."""
     p = perm.shape[1]
-    start = (int(iteration) * rays_per_kf) % p
+    start = ((iteration if isinstance(iteration, torch.Tensor) else int(iteration)) * rays_per_kf) % p
     cols = (start + torch.arange(rays_per_kf, device=perm.device)) % p
     return perm[:, cols]
 
@@ -443,6 +452,11 @@ def _join(parts, device):
     ))
 
 
+def _graphed(rows) -> bool:
+    """Whether the step replays CUDA graphs: on one data row of one CUDA device."""
+    return len(rows) == 1 and len(rows[0]) == 1 and rows[0][0].type == "cuda"
+
+
 def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[torch.Generator] = None,
                     apply_updates: bool = True):
     """The train step ``train_step(state, window, flags, pose_mask,
@@ -453,7 +467,8 @@ def make_train_step(cfg: MapperConfig, cube, device="cuda", generator: Optional[
     Without ``draws`` the step draws from ``generator`` (one seeded with 0
     on ``device`` when None), kept as ``train_step.generator``. With
     ``apply_updates=False`` the new state is the old one with only
-    ``global_step`` and ``skipped_steps`` advanced, as the JAX package's."""
+    ``global_step`` and ``skipped_steps`` advanced, as the JAX package's.
+    On a CUDA device the step replays CUDA graphs (``step_graph.py``)."""
     return make_mesh_train_step(cfg, cube, [(resolve_device(device),)], generator, apply_updates)
 
 
@@ -565,12 +580,16 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
     def train_step(state: MapperState, window, flags: TrainStepFlags, pose_mask: torch.Tensor,
                    iteration, draws: Optional[StepDraws] = None):
         with span("loner.step"):
-            return step(state, window, flags, pose_mask, iteration, draws)
+            if draws is None:
+                draws = draw_step(cfg, window, generator, state.poses.device)
+            new_state, aux = (step if graphs is None else graphs)(state, window, flags, pose_mask, iteration, draws)
+            # the lidar loss gives the intensity branch no gradient: its zeros
+            # are built here, outside a graph's copies (134 MB in the hash cell)
+            aux["grads"]["intensity"] = tree_map(torch.zeros_like, state.params["intensity"])
+            return new_state, aux
 
     def step(state: MapperState, window, flags: TrainStepFlags, pose_mask: torch.Tensor, iteration,
-             draws: Optional[StepDraws]):
-        if draws is None:
-            draws = draw_step(cfg, window, generator, state.poses.device)
+             draws: StepDraws):
         pose_grads = not flags.freeze_poses
         sigma_leaves = [t.detach().requires_grad_(True) for t in tree_leaves(state.params["sigma"])]
         params = {"sigma": _tree_unflatten(state.params["sigma"], sigma_leaves), "intensity": state.params["intensity"]}
@@ -586,7 +605,7 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
         with span("loner.step.update"):
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
             g_sigma = _tree_unflatten(state.params["sigma"], grads[: len(sigma_leaves)])
-            g_intensity = tree_map(torch.zeros_like, state.params["intensity"])
+            g_intensity = None if flags.freeze_rgb else tree_map(torch.zeros_like, state.params["intensity"])
             g_poses = grads[-1] if pose_grads else torch.zeros_like(state.poses)
             loss = loss.detach()
             with span("loner.step.finite"):
@@ -594,7 +613,7 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
             aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
             aux["loss"] = loss
             aux["finite"] = finite
-            aux["grads"] = {"sigma": g_sigma, "intensity": g_intensity, "poses": g_poses}
+            aux["grads"] = {"sigma": g_sigma, "intensity": None, "poses": g_poses}
             not_finite = (~finite).to(torch.int32)
             if not apply_updates:
                 return state._replace(global_step=state.global_step + 1,
@@ -648,6 +667,9 @@ def make_mesh_train_step(cfg: MapperConfig, cube, rows, generator: Optional[torc
         return new_state, aux
 
     train_step.generator = generator
+    train_step.graph_captures = 0
+    train_step.graph_replays = 0
+    graphs = StepGraphs(step, dev, train_step) if _graphed(rows) else None
     return train_step
 
 

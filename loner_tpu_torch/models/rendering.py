@@ -29,6 +29,27 @@ class RenderResult(NamedTuple):
     raw: torch.Tensor  # (C+1, N, S) or (1, N, S), transposed
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of factors none of which is 0,
+    with PyTorch's own gradient for that case (the reversed cumulative sum
+    of output times gradient, over the factors), less its check for zero
+    factors: a read of a device value on the host, which a CUDA graph
+    cannot hold (``mapping/step_graph.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        if x.numel() <= 1 or x.shape[-1] == 1:
+            return g
+        return (y * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _alphas_and_transmittance(sigmas: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor):
     """(alphas, T), each (N, S): each sample's opacity from relu sigma over
     its interval (a 1e10 terminal one), and the transmittance before it."""
@@ -38,9 +59,8 @@ def _alphas_and_transmittance(sigmas: torch.Tensor, z_vals: torch.Tensor, rays_d
     # gradients there that leak past the loss mask into the pose gradients
     d_norm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True) + 1e-20)
     alphas = 1.0 - torch.exp(-(deltas * d_norm) * torch.relu(sigmas))
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1), dim=-1
-    )[:, :-1]
+    # each factor is at least 1e-10 (alpha <= 1)
+    trans = _CumprodNonzero.apply(torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1))[:, :-1]
     return alphas, trans
 
 

@@ -172,7 +172,7 @@ def cp_fwd(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Sequence[int
     return out
 
 
-cp_fwd.launches = 0
+kernels.counted(cp_fwd)
 
 # The gather-based forward of the lane-gather probe computes cp_encode_ref's
 # function in its order: the same clip, floor, lerp and product.
@@ -207,7 +207,7 @@ def cp_fwd_gather(lines_t: torch.Tensor, pts_t: torch.Tensor, resolutions: Seque
     return out
 
 
-cp_fwd_gather.launches = 0
+kernels.counted(cp_fwd_gather)
 
 
 CP_MAX_LEVELS = 8
@@ -291,7 +291,7 @@ def cp_bwd(
     return dlines, dpts
 
 
-cp_bwd.launches = 0
+kernels.counted(cp_bwd)
 
 
 # ---------------------------------------------------------------------------

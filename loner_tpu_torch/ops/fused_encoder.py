@@ -328,7 +328,7 @@ def _bwd_dtable_exact(pts_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig
     return d
 
 
-_bwd_dtable_exact.launches = 0
+kernels.counted(_bwd_dtable_exact)
 
 
 def dtable_run_share(pts_t: torch.Tensor, cfg: FusedHashConfig) -> dict:
@@ -421,7 +421,7 @@ def interp_fwd(pts_t: torch.Tensor, v_t: torch.Tensor, cfg: FusedHashConfig) -> 
     return out
 
 
-interp_fwd.launches = 0
+kernels.counted(interp_fwd)
 
 
 def interp_dpts(pts_t: torch.Tensor, v_t: torch.Tensor, g: torch.Tensor, cfg: FusedHashConfig) -> torch.Tensor:
@@ -443,7 +443,7 @@ def interp_dpts(pts_t: torch.Tensor, v_t: torch.Tensor, g: torch.Tensor, cfg: Fu
     return out
 
 
-interp_dpts.launches = 0
+kernels.counted(interp_dpts)
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,7 @@ def row_scatter_add(idx: torch.Tensor, upd: torch.Tensor, n_rows: int, nshadow: 
     return out
 
 
-row_scatter_add.launches = 0
+kernels.counted(row_scatter_add)
 
 
 def float4_rows(table: torch.Tensor) -> bool:
@@ -168,7 +168,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-row_gather.launches = 0
+kernels.counted(row_gather)
 
 
 def col_gather(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -190,7 +190,7 @@ def col_gather(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-col_gather.launches = 0
+kernels.counted(col_gather)
 
 
 def _same_shape_lookup(name: str, ref, tab: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tensor:
@@ -211,7 +211,7 @@ def lane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _same_shape_lookup("lane_gather", lane_gather_ref, tab, idx, lane_gather)
 
 
-lane_gather.launches = 0
+kernels.counted(lane_gather)
 
 
 def sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -219,7 +219,7 @@ def sublane_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _same_shape_lookup("sublane_gather", sublane_gather_ref, tab, idx, sublane_gather)
 
 
-sublane_gather.launches = 0
+kernels.counted(sublane_gather)
 
 
 def two_stage_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -240,4 +240,4 @@ def two_stage_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-two_stage_gather.launches = 0
+kernels.counted(two_stage_gather)

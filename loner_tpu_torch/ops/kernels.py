@@ -9,6 +9,9 @@ to a source rebuilds it. Nothing here runs at import.
 
 Each C entry point launches on the stream it is given, allocates nothing, and
 returns ``cudaGetLastError()``; :func:`check` raises when that is not 0.
+Each Python wrapper counts its launches in its ``launches`` attribute and is
+listed in :data:`COUNTED` (:func:`counted`), so that a CUDA graph can add the
+launches it holds on each replay (``mapping/step_graph.py``).
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+COUNTED: list = []  # every wrapper with a ``launches`` counter, in the order they were defined
 build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
 
 
@@ -144,6 +148,13 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def counted(wrapper):
+    """Give ``wrapper`` a ``launches`` counter at 0 and list it in :data:`COUNTED`."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
 
 
 def check(rc: int, name: str) -> None:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import graph_stub
 from loner_tpu_torch.data import synthetic
 from loner_tpu_torch.data.scan import make_lidar_scan, sky_scan
 from loner_tpu_torch.geometry.world_cube import compute_world_cube
@@ -22,6 +23,7 @@ from loner_tpu_torch.mapping.offline import OfflineConfig, optimize_implicit_map
 from loner_tpu_torch.models.nerf import NeRFConfig
 from loner_tpu_torch.models.occupancy_grid import OccGridConfig
 from loner_tpu_torch.ops.triad_field import TriadConfig
+from loner_tpu_torch.mapping.step_graph import CAPTURE_SPAN, REPLAY_SPAN
 from loner_tpu_torch.runtime import profiling
 
 RAY_RANGE = (1.0, 40.0)
@@ -137,6 +139,35 @@ def test_keyframe_spans(mapped):
             assert p.t0_ns <= r.t0_ns and r.t1_ns <= p.t1_ns, (r, p)
     # map_times are the keyframe spans' own readings
     assert mapper.map_times == [(k.t1_ns - k.t0_ns) * 1e-9 for k in keyframes]
+
+
+def test_graphed_steps_record_capture_and_replay(scene, monkeypatch):
+    """Where the step runs as CUDA graphs (here through ``graph_stub.py``'s
+    stand-in for the capture): a key's first step records its stages, its
+    second a ``loner.step.capture`` holding the stages and then a
+    ``loner.step.replay``, every later one a replay alone. Four keyframes:
+    two burn-in steps (two keys, one an occupancy step), then three
+    keyframes of three joint steps over two keys."""
+    graph_stub.install(monkeypatch)
+    mapper = _mapper(scene)
+    profiling.reset()
+    for i in range(4):
+        assert _feed(mapper, scene, i)
+    by_id, kids = _tree(profiling.records())
+    stages = ["loner.step.forward", "loner.step.backward", "loner.step.update", "loner.step.release"]
+    steps = [r for r in profiling.records() if r.name == "loner.step"]
+    kinds = []
+    for step in sorted(steps, key=lambda r: r.id):
+        names = [r.name for r in kids[step.id]]
+        if names == [CAPTURE_SPAN, REPLAY_SPAN]:
+            assert [r.name for r in kids[kids[step.id][0].id]] == stages
+            kinds.append("capture")
+        else:
+            assert names in (stages, [REPLAY_SPAN]), names
+            kinds.append("eager" if names == stages else "replay")
+        assert all(not kids[r.id] for r in kids[step.id] if r.name == REPLAY_SPAN)
+    assert kinds == ["eager"] * 4 + ["capture"] * 2 + ["replay"] * 5
+    assert (mapper._train_step.graph_captures, mapper._train_step.graph_replays) == (2, 7)
 
 
 def test_skipped_frame_records_nothing(mapped):
